@@ -18,3 +18,9 @@ if "xla_force_host_platform_device_count" not in flags:
 import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the tdal_torch kernels); skips without one"
+    )

@@ -1,0 +1,98 @@
+"""tdal_torch stands alone and never falls back to the CPU.
+
+- Importing every tdal_torch submodule (in a fresh interpreter) loads no jax, flax,
+  optax or tdal module and builds no kernel.
+- No source of tdal_torch, nor chip_smoke.py, imports one (AST scan).
+- Without a card, the entry points refuse the default device (CUDA) instead of
+  running on the CPU.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from tdal_torch.device import resolve_device
+from tdal_torch.pipeline import factories, labeler_run, track_extraction
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parent.parent
+
+IMPORT_ALL = """
+import importlib, pkgutil, sys
+import tdal_torch
+for m in pkgutil.walk_packages(tdal_torch.__path__, "tdal_torch."):
+    importlib.import_module(m.name)
+from tdal_torch.ops.build import kernels
+print(kernels.cache_info().currsize)
+print(" ".join(sorted(sys.modules)))
+"""
+
+
+def _forbidden(module: str) -> bool:
+    """jax*, flax*, optax, and tdal or tdal.* (tdal_torch is the port itself)."""
+    top = module.split(".")[0]
+    return top.startswith(("jax", "flax")) or top in ("optax", "tdal")
+
+
+def test_importing_the_port_loads_no_reference_module():
+    res = subprocess.run(
+        [sys.executable, "-c", IMPORT_ALL], cwd=ROOT, capture_output=True, text=True,
+        timeout=120, check=True,
+    )
+    n_built, modules = res.stdout.strip().splitlines()
+    assert n_built == "0"  # importing builds nothing
+    loaded = modules.split()
+    assert "tdal_torch.pipeline.labeler_run" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+@pytest.mark.parametrize(
+    "path", sorted(ROOT.glob("tdal_torch/**/*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_no_source_imports_a_reference_module(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        assert not any(_forbidden(n) for n in names), (path, node.lineno, names)
+
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA card")
+
+
+def test_default_device_is_cuda_and_raises_without_a_card(no_card):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda:0")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_entry_points_refuse_the_cpu_unless_asked(no_card, tmp_path):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        factories.make_labeler("one_box_est")
+    model, inputs_fn, kind = factories.make_labeler("one_box_est", device="cpu")
+    dataset = [{"pts": np.zeros((16, 3), np.float32), "init_box": np.zeros(7, np.float32),
+                "bbox_gt": np.zeros(7, np.float32)}]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        labeler_run.predict_final_boxes(model, dataset, inputs_fn, kind, batch_size=2)
+    boxes = labeler_run.predict_final_boxes(model, dataset, inputs_fn, kind, batch_size=2,
+                                            device="cpu")
+    assert boxes.shape == (1, 7) and np.isfinite(boxes).all()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        track_extraction.create_pd_detection({}, {}, tmp_path, tracking=True)
+
