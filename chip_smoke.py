@@ -10,7 +10,9 @@ nothing of JAX or of ``tdal``, and exits non-zero on any failure. Phases:
 3. K1 (``fused_seg_encoder``) and K2 (``fused_seg_decoder``) against their plain
    twins at the labelers' production shapes (static B=64 N=4096 Cin=3, dynamic
    B=64 N=5120 Cin=4), in both operand modes, with kernel and twin times (CUDA
-   events, warm, median of 20 launches) and each kernel's bound;
+   events, warm, median of 20 launches) and each kernel's bound. Each mode's error
+   is also held against the mode gap (the other mode's kernel against this mode's
+   twin), so a kernel that ignored the operand mode fails;
 4. stages 2-6 end to end on a synthetic segment (20 frames, 10 static + 10
    dynamic objects, 30000 background points, 256 points per object) with
    detections fabricated from its GT and fresh-init labelers from a seeded
@@ -42,7 +44,15 @@ import torch
 PEAK_FLOPS = {False: 67e12, True: 989e12}  # f32 on the CUDA cores; bf16 operands
 HBM_BYTES_PER_S = 3.35e12
 
-TOL = {False: 1e-5, True: 1e-2}  # max |kernel - twin| / max(1, max |twin|)
+# max |kernel - twin| / max(1, max |twin|), by operand mode (bf16_operands). f32: the
+# same products summed in another order. bf16: a summation-order difference can move
+# an activation across a bf16 rounding step before the next layer, which K2's logits
+# (|logit| < 0.1 at random weights) show as up to 6.1e-4. A K2 run in the other mode
+# differs by no more than 9.2e-4 at most, so the largest error cannot tell the modes
+# apart: the RMS check below does, as the mode changes every value and a rounding
+# step only a few (PERF.md has the card's readings).
+TOL = {False: 1e-5, True: 2e-3}
+MODE_MARGIN = 10  # the own-mode RMS error must be at most 1/10 of the mode gap's
 SHAPES = {"static": (64, 4096, 3), "dynamic": (64, 5120, 4)}
 SEGMENT = dict(n_scenes=1, n_frames=20, seed=0, n_static=10, n_dynamic=10,
                points_per_object=256, n_background=30000)
@@ -107,71 +117,81 @@ def rel_err(got, ref):
     return err, err / max(1.0, float(ref.abs().max()))
 
 
-def random_seg(cin: int, seed: int, device):
-    """A PointNetSeg with seeded weights and BatchNorm affine/running stats, so that
-    the fold has work to do."""
-    from tdal_torch.models.pointnet import PointNetSeg
-    from tdal_torch.pipeline.factories import init_weights
+def rms_rel(got, ref) -> float:
+    """RMS of the difference over the RMS of the reference."""
+    return float((got - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt().clamp_min(1e-30))
 
-    g = torch.Generator().manual_seed(seed)
-    model = init_weights(PointNetSeg(cin), g)
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, torch.nn.BatchNorm1d):
-                n = m.num_features
-                m.weight.copy_(0.5 + torch.rand(n, generator=g))
-                m.bias.copy_(0.1 * torch.randn(n, generator=g))
-                m.running_mean.copy_(0.1 * torch.randn(n, generator=g))
-                m.running_var.copy_(0.5 + torch.rand(n, generator=g))
-    return model.to(device).eval()
+
+def compare(gots, others, wants) -> dict:
+    """A kernel's outputs ``gots``, and the same kernel's outputs in the other operand
+    mode ``others``, against its twin's ``wants``; each error is the largest over the
+    outputs."""
+    errs = [rel_err(g, w) for g, w in zip(gots, wants)]
+    return dict(
+        max_abs_err=max(e for e, _ in errs), max_rel_err=max(r for _, r in errs),
+        rms_err=max(rms_rel(g, w) for g, w in zip(gots, wants)),
+        gap_max_rel=max(rel_err(o, w)[1] for o, w in zip(others, wants)),
+        gap_rms=max(rms_rel(o, w) for o, w in zip(others, wants)),
+    )
 
 
 def phase_kernels(device) -> dict:
-    """K1 and K2 against their twins at the production shapes, both operand modes."""
+    """K1 and K2 against their twins at the production shapes, both operand modes.
+
+    Each kernel's largest error against the twin of its own operand mode must be
+    within ``TOL``, and its RMS error at most ``1 / MODE_MARGIN`` of the mode gap: the
+    RMS error of the same kernel run in the other mode, on the same inputs, against
+    that twin. So a kernel that ignored the operand mode would fail."""
     from tdal_torch.ops import fused_pointnet as fp
+    from tdal_torch.pipeline.factories import random_pointnet_seg
 
     results = {"fused_seg_encoder": {}, "fused_seg_decoder": {}}
+    failures = []
     for shape_name, (b, n, cin) in SHAPES.items():
-        seg = random_seg(cin, seed=cin, device=device)
+        seg = random_pointnet_seg(cin, seed=cin).to(device)
         x = torch.randn(b, n, cin, generator=torch.Generator().manual_seed(n)).to(device)
         with torch.inference_mode():
             folded = fp.fold_pointnet_seg_params(seg)
             enc_w, enc_b, dec = folded[0], folded[1], folded[2:]
+            enc = {m: fp.fused_seg_encoder(x, enc_w, enc_b, m) for m in (False, True)}
             for bf16 in (False, True):
                 mode = "bf16" if bf16 else "f32"
-                skip, gmax = fp.fused_seg_encoder(x, enc_w, enc_b, bf16)
-                logits = fp.fused_seg_decoder(skip, gmax, *dec, bf16)
+                skip, gmax = enc[bf16]
+                logits = {m: fp.fused_seg_decoder(skip, gmax, *dec, m) for m in (False, True)}
                 torch.cuda.synchronize()
                 skip_t, gmax_t = fp.fused_seg_encoder_plain(x, enc_w, enc_b, bf16)
                 logits_t = fp.fused_seg_decoder_plain(skip, gmax, *dec, bf16)
-                e_skip, e_gmax, e_log = (rel_err(skip, skip_t), rel_err(gmax, gmax_t),
-                                         rel_err(logits, logits_t))
                 checks = {
-                    "fused_seg_encoder": (max(e_skip[0], e_gmax[0]), max(e_skip[1], e_gmax[1]),
+                    "fused_seg_encoder": (compare(enc[bf16], enc[not bf16], (skip_t, gmax_t)),
                                           lambda: fp.fused_seg_encoder(x, enc_w, enc_b, bf16),
                                           lambda: fp.fused_seg_encoder_plain(x, enc_w, enc_b, bf16),
                                           encoder_work(b, n, cin)),
-                    "fused_seg_decoder": (e_log[0], e_log[1],
+                    "fused_seg_decoder": (compare([logits[bf16]], [logits[not bf16]], [logits_t]),
                                           lambda: fp.fused_seg_decoder(skip, gmax, *dec, bf16),
                                           lambda: fp.fused_seg_decoder_plain(skip, gmax, *dec, bf16),
                                           decoder_work(b, n)),
                 }
-                del skip_t, gmax_t, logits_t
-                for name, (abs_err, rel, kernel, plain, work) in checks.items():
+                del skip_t, gmax_t, logits_t, logits
+                for name, (err, kernel, plain, work) in checks.items():
                     ms, plain_ms = time_ms(kernel), time_ms(plain)
                     bound_ms, bound_by = bound(work, bf16)
-                    r = dict(max_abs_err=abs_err, max_rel_err=rel, tol=TOL[bf16], ms=ms,
-                             plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                             gflop=work[0] / 1e9, tflops=work[0] / ms / 1e9)
+                    r = dict(**err, tol=TOL[bf16], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, gflop=work[0] / 1e9, tflops=work[0] / ms / 1e9)
                     results[name][f"{shape_name} {mode}"] = r
                     log(f"  {name} {shape_name} B={b} N={n} Cin={cin} {mode}: "
-                        f"max abs err {abs_err:.3e}, rel {rel:.3e} (tol {TOL[bf16]:.0e}); "
-                        f"kernel {ms:.3f} ms ({r['tflops']:.1f} TFLOP/s), twin {plain_ms:.3f} ms, "
+                        f"max abs err {err['max_abs_err']:.3e}, rel {err['max_rel_err']:.3e} "
+                        f"(tol {TOL[bf16]:.0e}), RMS {err['rms_err']:.3e}; the other mode's "
+                        f"kernel against this twin: rel {err['gap_max_rel']:.3e}, "
+                        f"RMS {err['gap_rms']:.3e}; kernel {ms:.3f} ms "
+                        f"({r['tflops']:.1f} TFLOP/s), twin {plain_ms:.3f} ms, "
                         f"bound {bound_ms:.3f} ms ({bound_by})")
-                    if not rel <= TOL[bf16]:
-                        raise AssertionError(f"{name} {shape_name} {mode}: rel err {rel} > {TOL[bf16]}")
-        del seg, x
+                    if not (err["max_rel_err"] <= TOL[bf16]
+                            and MODE_MARGIN * err["rms_err"] <= err["gap_rms"]):
+                        failures.append(f"{name} {shape_name} {mode}: {json.dumps(err)}")
+        del seg, x, enc
         torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("kernels disagree with their twins: " + "; ".join(failures))
     return results
 
 
@@ -366,8 +386,8 @@ def main() -> int:
 
     log("phase 2 build")
     t0 = time.perf_counter()
-    lib = kernels()
-    log(f"  built {type(lib).__name__} in {time.perf_counter() - t0:.1f} s")
+    kernels()
+    log(f"  built the kernels with nvcc in {time.perf_counter() - t0:.1f} s")
 
     log("phase 3 kernels against their twins")
     kres = phase_kernels(device)

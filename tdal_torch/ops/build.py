@@ -1,15 +1,13 @@
 """Build the port's CUDA kernels at first use, from the sources in the repository.
 
-``kernels()`` compiles ``csrc/*.cu`` for ``sm_90a`` into ``build/tdal_torch_kernels/``
-(listed in ``.gitignore``) the first time a process launches a kernel, and returns an
-object with ``encoder_tile()``, ``seg_encoder(...)`` and ``seg_decoder(...)`` taking
-tensors. Importing this module builds nothing.
-
-Two routes, chosen by what the machine has:
-- with ``ninja``: ``torch.utils.cpp_extension.load`` on every ``.cu`` source plus
-  ``csrc/bindings.cpp``, the one file that includes PyTorch's headers;
-- without it: ``nvcc`` into a shared library with a plain C interface, loaded with
-  ``ctypes``; the launch check is ``tdal_last_error()`` right after each launch.
+``kernels()`` compiles ``csrc/*.cu`` for ``sm_90a`` with ``nvcc`` into a shared library
+with a plain C interface, ``build/tdal_torch_kernels/libtdal_torch_kernels.so``
+(listed in ``.gitignore``), the first time a process launches a kernel, and loads it
+with ``ctypes``. The sources include no PyTorch header, so the build takes seconds.
+The returned object has ``encoder_tile()``, ``seg_encoder(...)`` and
+``seg_decoder(...)`` taking tensors; each launches on PyTorch's current stream and
+checks the launch with ``tdal_last_error()`` right after it. Importing this module
+builds nothing.
 """
 
 from __future__ import annotations
@@ -29,41 +27,29 @@ GENCODE = "-gencode=arch=compute_90a,code=sm_90a"
 @functools.cache
 def kernels():
     """The built kernels (built once per process)."""
-    from torch.utils import cpp_extension
+    from torch.utils.cpp_extension import CUDA_HOME
 
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = sorted(str(p) for p in CSRC.glob("*.cu"))
-    if cpp_extension.is_ninja_available():
-        return cpp_extension.load(
-            name="tdal_torch_kernels",
-            sources=sources + [str(CSRC / "bindings.cpp")],
-            build_directory=str(BUILD_DIR),
-            extra_cflags=["-O2"],
-            extra_cuda_cflags=["-O3", GENCODE],
-            verbose=False,
-        )
-    return _CtypesKernels(_nvcc_shared_library(cpp_extension.CUDA_HOME, sources))
-
-
-def _nvcc_shared_library(cuda_home, sources) -> Path:
-    if cuda_home is None:
+    if CUDA_HOME is None:
         raise RuntimeError("tdal_torch: no CUDA toolkit found to build the kernels")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / "libtdal_torch_kernels.so"
     # build under a temporary name, then rename: concurrent processes never load a
     # half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     cmd = [
-        str(Path(cuda_home) / "bin" / "nvcc"), GENCODE, "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-o", tmp, *sources,
+        str(Path(CUDA_HOME) / "bin" / "nvcc"), GENCODE, "-std=c++17", "-O3",
+        "-shared", "-Xcompiler", "-fPIC", "-o", tmp, *sorted(map(str, CSRC.glob("*.cu"))),
     ]
     subprocess.run(cmd, check=True)
     os.replace(tmp, out)
-    return out
+    return _Kernels(out)
 
 
-class _CtypesKernels:
-    """The ``bindings.cpp`` interface over the plain C library."""
+class _Kernels:
+    """Tensor-level launchers over the plain C library of ``csrc/fused_pointnet.cu``.
+    ``tdal_torch/ops/fused_pointnet.py`` has checked every tensor and allocated every
+    output and scratch buffer before it calls in here."""
 
     def __init__(self, path: Path):
         lib = ctypes.CDLL(str(path))

@@ -37,9 +37,10 @@
 //   matches the TPU kernel up to summation order. The skip and gmax outputs stay
 //   unrounded f32, as on the TPU.
 //
-// Plain C interface (no PyTorch headers): launchers take raw pointers and a
-// stream, allocate nothing and do not synchronise; the caller checks
-// cudaGetLastError right after each launch (bindings.cpp or tdal_last_error()).
+// Plain C interface (no PyTorch headers), loaded with ctypes by
+// tdal_torch/ops/build.py: launchers take raw pointers and a stream, allocate
+// nothing and do not synchronise; the caller checks tdal_last_error() right after
+// each launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

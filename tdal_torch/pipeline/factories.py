@@ -9,6 +9,7 @@ from torch import nn
 
 from tdal_torch.device import resolve_device
 from tdal_torch.models.dynamic_labeler import DynamicLabeler
+from tdal_torch.models.pointnet import PointNetSeg
 from tdal_torch.models.static_labeler import StaticLabelerOneBox, StaticLabelerTwoBox
 
 _MODELS = {
@@ -29,6 +30,22 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 m.weight.uniform_(-bound, bound, generator=generator)
                 m.bias.uniform_(-bound, bound, generator=generator)
     return model
+
+
+def random_pointnet_seg(cin: int, seed: int) -> PointNetSeg:
+    """A ``PointNetSeg`` on the CPU in eval mode with seeded weights and seeded
+    BatchNorm affine and running stats, so that folding BN has work to do."""
+    g = torch.Generator().manual_seed(seed)
+    model = init_weights(PointNetSeg(cin), g)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.BatchNorm1d):
+                n = m.num_features
+                m.weight.copy_(0.5 + torch.rand(n, generator=g))
+                m.bias.copy_(0.1 * torch.randn(n, generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=g))
+                m.running_var.copy_(0.5 + torch.rand(n, generator=g))
+    return model.eval()
 
 
 def make_labeler(model_type: str, n_object_points: int | None = None, device=None,

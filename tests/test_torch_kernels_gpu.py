@@ -7,21 +7,26 @@ every case skips.
 Tolerances, relative to max(1, max |twin|):
 - f32 operands: 1e-5; the kernel and the twin sum the same f32 products in another
   order (TF32 is off for the twin).
-- bf16 operands: 1e-2; both round every operand to bf16, and a summation-order
+- bf16 operands: 2e-3; both round every operand to bf16, and a summation-order
   difference can move an activation across a bf16 rounding boundary (one 2^-8 step)
   before the next layer.
+- In either mode the RMS error must also be at most 1/MODE_MARGIN of the mode gap:
+  the RMS error of the same kernel run in the other operand mode against this mode's
+  twin. The mode changes every value and a rounding step only a few, so a kernel
+  that ignored ``bf16_operands`` would fail, which the largest error alone cannot
+  show for K2 (its logits are small: the gap's largest error is below 1e-3).
 """
 
 import pytest
 import torch
 
-from tdal_torch.models.pointnet import PointNetSeg
 from tdal_torch.ops import fused_pointnet as fp
-from tdal_torch.pipeline.factories import init_weights
+from tdal_torch.pipeline.factories import random_pointnet_seg
 
 torch.set_num_threads(2)
 
-TOL = {False: 1e-5, True: 1e-2}
+TOL = {False: 1e-5, True: 2e-3}
+MODE_MARGIN = 10
 
 
 @pytest.fixture
@@ -33,23 +38,12 @@ def cuda():
     return torch.device("cuda")
 
 
-def random_seg(cin: int, seed: int) -> PointNetSeg:
-    """A PointNetSeg with seeded weights and BatchNorm affine/running stats."""
-    g = torch.Generator().manual_seed(seed)
-    model = init_weights(PointNetSeg(cin), g)
-    with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, torch.nn.BatchNorm1d):
-                n = m.num_features
-                m.weight.copy_(0.5 + torch.rand(n, generator=g))
-                m.bias.copy_(0.1 * torch.randn(n, generator=g))
-                m.running_mean.copy_(0.1 * torch.randn(n, generator=g))
-                m.running_var.copy_(0.5 + torch.rand(n, generator=g))
-    return model.eval()
-
-
 def max_rel_err(got, ref) -> float:
     return float((got - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+
+
+def rms_rel_err(got, ref) -> float:
+    return float((got - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt().clamp_min(1e-30))
 
 
 @pytest.mark.gpu
@@ -58,7 +52,7 @@ def max_rel_err(got, ref) -> float:
 def test_kernels_match_twins(cuda, cin, n, bf16):
     g = torch.Generator().manual_seed(n)
     x = torch.randn(3, n, cin, generator=g).to(cuda)
-    model = random_seg(cin, seed=cin).to(cuda)
+    model = random_pointnet_seg(cin, seed=cin).to(cuda)
     with torch.inference_mode():
         folded = fp.fold_pointnet_seg_params(model)
         before = dict(fp.launches)
@@ -67,16 +61,20 @@ def test_kernels_match_twins(cuda, cin, n, bf16):
         torch.cuda.synchronize()
         assert fp.launches["fused_seg_encoder"] == before["fused_seg_encoder"] + 1
         assert fp.launches["fused_seg_decoder"] == before["fused_seg_decoder"] + 1
+        # the same kernels in the other operand mode, on the same inputs
+        other = (*fp.fused_seg_encoder(x, folded[0], folded[1], not bf16),
+                 fp.fused_seg_decoder(skip, gmax, *folded[2:], not bf16))
         skip_t, gmax_t = fp.fused_seg_encoder_plain(x, folded[0], folded[1], bf16)
         logits_t = fp.fused_seg_decoder_plain(skip, gmax, *folded[2:], bf16)
-    assert max_rel_err(skip, skip_t) <= TOL[bf16]
-    assert max_rel_err(gmax, gmax_t) <= TOL[bf16]
-    assert max_rel_err(logits, logits_t) <= TOL[bf16]
+    for got, got_other, want in zip((skip, gmax, logits), other, (skip_t, gmax_t, logits_t)):
+        assert max_rel_err(got, want) <= TOL[bf16]
+        err, gap = rms_rel_err(got, want), rms_rel_err(got_other, want)
+        assert MODE_MARGIN * err <= gap, (err, gap)
 
 
 @pytest.mark.gpu
 def test_pointnet_seg_eval_on_card_runs_the_kernels(cuda):
-    model = random_seg(3, seed=0).to(cuda)
+    model = random_pointnet_seg(3, seed=0).to(cuda)
     x = torch.randn(2, 300, 3, generator=torch.Generator().manual_seed(1)).to(cuda)
     before = dict(fp.launches)
     with torch.inference_mode():
@@ -90,35 +88,8 @@ def test_pointnet_seg_eval_on_card_runs_the_kernels(cuda):
 
 
 @pytest.mark.gpu
-def test_ctypes_route_matches_the_twins(cuda, tmp_path, monkeypatch):
-    """The build taken where ninja is missing: nvcc into a plain-C library, bound
-    with ctypes, behind the same wrappers."""
-    from torch.utils import cpp_extension
-
-    from tdal_torch.ops import build
-
-    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
-    sources = sorted(str(p) for p in build.CSRC.glob("*.cu"))
-    lib = build._CtypesKernels(build._nvcc_shared_library(cpp_extension.CUDA_HOME, sources))
-    monkeypatch.setattr(build, "kernels", lambda: lib)
-    model = random_seg(4, seed=1).to(cuda)
-    x = torch.randn(3, 300, 4, generator=torch.Generator().manual_seed(2)).to(cuda)
-    with torch.inference_mode():
-        folded = fp.fold_pointnet_seg_params(model)
-        for bf16 in (False, True):
-            skip, gmax = fp.fused_seg_encoder(x, folded[0], folded[1], bf16)
-            logits = fp.fused_seg_decoder(skip, gmax, *folded[2:], bf16)
-            torch.cuda.synchronize()
-            skip_t, gmax_t = fp.fused_seg_encoder_plain(x, folded[0], folded[1], bf16)
-            logits_t = fp.fused_seg_decoder_plain(skip, gmax, *folded[2:], bf16)
-            assert max_rel_err(skip, skip_t) <= TOL[bf16]
-            assert max_rel_err(gmax, gmax_t) <= TOL[bf16]
-            assert max_rel_err(logits, logits_t) <= TOL[bf16]
-
-
-@pytest.mark.gpu
 def test_wrappers_check_their_inputs(cuda):
-    model = random_seg(3, seed=0).to(cuda)
+    model = random_pointnet_seg(3, seed=0).to(cuda)
     folded = fp.fold_pointnet_seg_params(model)
     with pytest.raises(ValueError):
         fp.fused_seg_encoder(torch.zeros(2, 8, 5, device=cuda), folded[0], folded[1])
