@@ -20,16 +20,44 @@ nothing of JAX or of ``tdal``, and exits non-zero on any failure. Phases:
    set to 0 just before it and read just after. Both labelers must label boxes and
    each kernel must run once per predict batch. One batch of each labeler is then
    held against the same model on the CPU (plain layers, no kernel);
-5. one line ``{"kernels": [...]}``;
-6. the last line ``{"ok": true, "device": {...}}``.
+5. K3 (``conv3x3_fwd_stats``), K4 (``conv3x3_fwd``, as the dgrad with flipped,
+   swapped weights) and K5/K6 (``conv3x3_wgrad``) against their plain twins at the
+   five stride-1 3x3 conv shapes of PointPillars training on the Waymo config (B=4:
+   the RPN stages 468^2x64, 234^2x128, 117^2x256, the head's shared conv 468^2x384->64
+   and its branch conv 468^2x64->320) and a ragged 37x41 image with positive shifts
+   (a halo leak shows there), in f32 and bf16 and with the input affine on and off;
+   kernel, twin and cuDNN times (CUDA events, warm, median of 10) and the bound;
+6. PointPillars training end to end: ``configs/waymo/pp/waymo_centerpoint_pp_two_
+   pfn_stride1_3x.py`` through the port's ``Config.fromfile``, ``build_detector``
+   (fresh init from seed 0) and ``train_detector`` at batch 4 on a synthetic dataset
+   (8 frames, 150000 background points each, ``max_points`` 200000): a warm epoch
+   (2 steps), then 2 epochs (4 steps) with the launch counters set to 0 just before
+   and read just after. Every loss must be finite and every step must launch each
+   conv kernel 16 times (16 stride-1 3x3 convs; 12 of them take the input affine).
+   Then one train step on the card is held against the same step on a CPU copy
+   (plain versions, no kernel): the loss, the BN running statistics, the gradients
+   within 8x a noise floor measured on the CPU copy (the change under a permutation
+   of the batch or under two rounding-level changes of the weights, each taken both
+   ways; for the SepHead's final cuDNN conv plus both libraries' f32 error against
+   float64), and the parameters after the AdamW update. Two controls must fail that
+   comparison: the card's step without the 2*y*gss term of the statistics' backward,
+   and the step of the same weights with bf16 activations;
+7. one line ``{"kernels": [...]}`` (K1, K2, K3, K4, K5/K6);
+8. the last line ``{"ok": true, "device": {...}}``.
+
+``--noise-probe STATES`` builds and then runs only ``noise_probe``: on the card, how
+often phase 6's comparison would fail a step that differs by rounding alone.
 """
 
 from __future__ import annotations
 
+import argparse
+import contextlib
 import copy
 import json
 import logging
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -364,7 +392,536 @@ def phase_chain(device) -> dict:
     return dict(launches=launches, total_s=total, **res["counts"], stage_s=res["stage_s"])
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the 3x3 conv kernels K3, K4, K5/K6
+# ---------------------------------------------------------------------------
+
+CONV_SOURCE = "tdal_torch/ops/csrc/conv3x3.cu"
+CONV_REPLACES = {
+    "conv3x3_fwd_stats": "tdal/ops/pallas_conv.py:147",
+    "conv3x3_fwd": "tdal/ops/pallas_conv.py:267",
+    "conv3x3_wgrad": "tdal/ops/pallas_conv.py:519",
+}
+# (B, H, W, C, Co): the stride-1 3x3 conv sites of the Waymo PP train step, and a
+# ragged image (with positive input shifts: a halo that leaked relu(t) moves its border)
+CONV_SHAPES = {
+    "rpn stage 1": (4, 468, 468, 64, 64),
+    "rpn stage 2": (4, 234, 234, 128, 128),
+    "rpn stage 3": (4, 117, 117, 256, 256),
+    "head shared": (4, 468, 468, 384, 64),
+    "head branch": (4, 468, 468, 64, 320),
+    "ragged halo": (2, 37, 41, 48, 80),
+}
+CONV_MAIN = "rpn stage 1 f32 in_act"  # the kernels line's case: a chained RPN layer
+# max |kernel - twin| / max(1, max |twin|): f32 outputs and every f32 accumulator
+# (bf16 moments and wgrad: the same exact products summed in another order) 1e-5;
+# bf16 y and dgrad 8e-3, one bf16 rounding step at the largest value (2^-7), which a
+# summation-order difference can flip
+CONV_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (8e-3, 1e-5)}
+
+
+def conv_work(name, b, h, w, c, co, itemsize):
+    """(FLOP, bytes) of one conv kernel call: each input read once, each output
+    written once (statistics, bias and affine vectors included)."""
+    flops = 2 * b * h * w * 9 * c * co
+    weights = 9 * c * co * itemsize
+    if name == "conv3x3_fwd_stats":
+        nbytes = b * h * w * (c + co) * itemsize + weights + 4 * (2 * c + co + 2 * co)
+    elif name == "conv3x3_fwd":  # as the dgrad: gy (co channels) -> dx (c channels)
+        nbytes = b * h * w * (co + c) * itemsize + weights + 4 * c
+    else:
+        nbytes = b * h * w * (c + co) * itemsize + 4 * (9 * c * co + 2 * c)
+    return flops, nbytes
+
+
+def phase_conv(device) -> dict:
+    """K3, K4 (dgrad) and K5/K6 against their twins at the production shapes."""
+    from torch.nn.grad import conv2d_input, conv2d_weight
+
+    from tdal_torch.ops import conv3x3 as cv
+
+    results = {k: {} for k in CONV_REPLACES}
+    failures = []
+    for shape_name, (b, h, w, c, co) in CONV_SHAPES.items():
+        for dtype, mode in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            g = torch.Generator().manual_seed(b * h + c)
+            x = torch.randn(b, h, w, c, generator=g).to(dtype).to(device)
+            wt = (torch.randn(3, 3, c, co, generator=g) / (3 * c ** 0.5)).to(dtype).to(device)
+            bias = torch.randn(co, generator=g).to(device)
+            s = (0.5 + torch.rand(c, generator=g)).to(device)
+            t = (0.5 + torch.rand(c, generator=g) if shape_name == "ragged halo"
+                 else torch.randn(c, generator=g)).to(device)
+            gy = torch.randn(b, h, w, co, generator=g).to(dtype).to(device)
+            wf = cv._flip_swap(wt)
+            zero_c = torch.zeros(c, device=device)
+            x_cl, gy_cl = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)
+            w_oihw = wt.permute(3, 2, 0, 1).contiguous()
+            library = {  # the cuDNN call computing the same conv (TF32 off in f32)
+                "conv3x3_fwd_stats": lambda: torch.nn.functional.conv2d(
+                    x_cl, w_oihw, bias.to(dtype), padding=1),
+                "conv3x3_fwd": lambda: conv2d_input(x_cl.shape, w_oihw, gy_cl, padding=1),
+                "conv3x3_wgrad": lambda: conv2d_weight(x_cl, w_oihw.shape, gy_cl, padding=1),
+            }
+            library_ms = {k: time_ms(f, reps=10, warm=2) for k, f in library.items()}
+            tol_y, tol_acc = CONV_TOL[dtype]
+            for in_act in (False, True):
+                case = f"{shape_name} {mode}" + (" in_act" if in_act else "")
+                kernel = {
+                    "conv3x3_fwd_stats": lambda: cv.conv3x3_fwd_stats(x, wt, bias, s, t, in_act),
+                    "conv3x3_fwd": lambda: cv.conv3x3_fwd(gy, wf, zero_c),
+                    "conv3x3_wgrad": lambda: cv.conv3x3_wgrad(x, gy, s, t, in_act),
+                }
+                plain = {
+                    "conv3x3_fwd_stats": lambda: cv.conv3x3_fwd_stats_plain(
+                        x, wt, bias, s, t, in_act),
+                    "conv3x3_fwd": lambda: cv.conv3x3_fwd_plain(gy, wf, zero_c),
+                    "conv3x3_wgrad": lambda: cv.conv3x3_wgrad_plain(x, gy, s, t, in_act),
+                }
+                for name in CONV_REPLACES:
+                    got, want = kernel[name](), plain[name]()
+                    torch.cuda.synchronize()
+                    if name == "conv3x3_fwd_stats":
+                        pairs = [(got[0], want[0], tol_y), (got[1], want[1], tol_acc)]
+                    else:
+                        pairs = [(got, want, tol_y if name == "conv3x3_fwd" else tol_acc)]
+                    errs = [(*rel_err(a.float(), r.float()), tol) for a, r, tol in pairs]
+                    del got, want
+                    ms, plain_ms = time_ms(kernel[name], reps=10, warm=2), \
+                        time_ms(plain[name], reps=5, warm=1)
+                    work = conv_work(name, b, h, w, c, co, x.element_size())
+                    bound_ms, bound_by = bound(work, dtype == torch.bfloat16)
+                    r = dict(max_abs_err=max(e[0] for e in errs),
+                             max_rel_err=max(e[1] for e in errs),
+                             tol=[e[2] for e in errs], ms=ms, plain_ms=plain_ms,
+                             library_ms=library_ms[name], bound_ms=bound_ms,
+                             bound_by=bound_by, gflop=work[0] / 1e9,
+                             tflops=work[0] / ms / 1e9)
+                    results[name][case] = r
+                    log(f"  {name} {case} B={b} {h}x{w} {c}->{co}: max abs err "
+                        f"{r['max_abs_err']:.3e}, rel {r['max_rel_err']:.3e}; kernel "
+                        f"{ms:.3f} ms ({r['tflops']:.1f} TFLOP/s), twin {plain_ms:.3f} ms, "
+                        f"cuDNN {library_ms[name]:.3f} ms, bound {bound_ms:.3f} ms "
+                        f"({bound_by})")
+                    if not all(e[1] <= e[2] for e in errs):
+                        failures.append(f"{name} {case}: {json.dumps(r)}")
+            del x, wt, gy, wf, x_cl, gy_cl, w_oihw
+            torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("conv kernels disagree with their twins: " + "; ".join(failures))
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 6: PointPillars training on the Waymo config
+# ---------------------------------------------------------------------------
+
+PP_CONFIG = Path("configs/waymo/pp/waymo_centerpoint_pp_two_pfn_stride1_3x.py")
+PP_DATA = dict(n_scenes=1, n_frames=8, seed=0, n_static=10, n_dynamic=10,
+               points_per_object=256, n_background=150000)
+PP_BATCH, PP_WARM_EPOCHS, PP_TIMED_EPOCHS = 4, 1, 2
+PP_TIMED = PP_TIMED_EPOCHS * PP_DATA["n_frames"] // PP_BATCH  # steps
+# (shape of phase 5, input affine on, sites per step): each stage's stride-1 entry
+# (stage 1) or first layer after the strided entry takes no input affine
+PP_SITE_CASES = [("rpn stage 1", False, 1), ("rpn stage 1", True, 3),
+                 ("rpn stage 2", False, 1), ("rpn stage 2", True, 4),
+                 ("rpn stage 3", False, 1), ("rpn stage 3", True, 4),
+                 ("head shared", False, 1), ("head branch", True, 1)]
+PP_SITES = sum(n for _, _, n in PP_SITE_CASES)
+GRAD_NOISE_MARGIN = 8  # gradients within 8x the measured noise floor
+# relative change of every weight for the noise floor: about the f32 rounding of a
+# dot product over 9 * C = 576..3456 terms in another order (sqrt(n) * 2^-24)
+ULP_PERTURBATION = 2.0**-19
+
+
+def step_with_grads(model, batch, device, cfg, n_steps_total, perturb=0.0, perturb_seed=1):
+    """One train step of a copy of ``model`` on ``device``: (loss, gradients, state
+    after the AdamW update, lr of the step, library error), on the CPU in float64.
+    ``perturb`` != 0 first scales every parameter by 1 + perturb * u, u uniform in
+    [-1, 1] from ``perturb_seed`` (so -perturb moves each weight the other way).
+
+    The library error of each SepHead's final conv (a cuDNN or oneDNN conv, not a
+    kernel of the port) is the largest distance of its f32 weight gradient from a
+    float64 weight gradient of the same input and cotangent."""
+    from torch.nn.grad import conv2d_weight
+
+    from tdal_torch.models.center_head import center_head_loss
+    from tdal_torch.pipeline.detector_engine import TARGET_KEYS, batch_to_device
+    from tdal_torch.runtime.schedules import adam_with_schedule, one_cycle
+
+    m = copy.deepcopy(model).to(device).train()
+    if perturb:
+        gen = torch.Generator().manual_seed(perturb_seed)
+        with torch.no_grad():
+            for p in m.parameters():
+                p.mul_(1 + perturb * (2 * torch.rand(p.shape, generator=gen) - 1).to(device))
+    lr, mom = one_cycle(cfg.lr_config["lr_max"], n_steps_total)
+    opt = adam_with_schedule(m.parameters(), lr, cfg.optimizer["wd"],
+                             cfg.grad_clip["max_norm"], mom)
+    b = batch_to_device(batch, device)
+    head = cfg.model["bbox_head"]
+    inputs = {}
+    for t, sep in enumerate(m.head.tasks):
+        sep.branch_convbn0.register_forward_hook(
+            lambda mod, args, out, t=t: inputs.__setitem__(t, out.detach()))
+    preds = m(b["points"])
+    total, _ = center_head_loss(preds, {k: b[k] for k in TARGET_KEYS},
+                                head["code_weights"], head["weight"])
+    outs = [p[n] for sep, p in zip(m.head.tasks, preds) for n in sep.names]
+    couts = torch.autograd.grad(total, outs, retain_graph=True)
+    total.backward()
+    grads = {n: p.grad.detach().cpu().double() for n, p in m.named_parameters()}
+    lib_err, k = {}, 0
+    for t, sep in enumerate(m.head.tasks):
+        g = torch.cat(couts[k : k + len(sep.names)], dim=-1).double()
+        k += len(sep.names)
+        dw = conv2d_weight(inputs[t].double().permute(0, 3, 1, 2), sep.final_conv_weight.shape,
+                           g.permute(0, 3, 1, 2), padding=1) * sep.final_conv_mask
+        name = f"head.tasks.{t}.final_conv_weight"
+        lib_err[name] = float((grads[name] - dw.cpu()).abs().max())
+    del inputs, couts
+    opt.step()
+    state = {k: v.detach().cpu().double() for k, v in m.state_dict().items()}
+    return float(total.detach()), grads, state, lr(0), lib_err
+
+
+@contextlib.contextmanager
+def without_second_moment_grad():
+    """A wrong backward for a control: ``conv3x3_act_stats`` drops the cotangent of
+    sum y^2, so the 2*y*gss term of its stats cotangent is gone."""
+    from tdal_torch.ops import conv3x3 as cv
+
+    fn = cv._ConvActStats
+    original = fn.__dict__["backward"]
+    keep_first = lambda g: g * g.new_tensor([[1.0], [0.0]])  # noqa: E731
+    fn.backward = staticmethod(
+        lambda ctx, gy, gstats: original.__func__(ctx, gy, keep_first(gstats)))
+    try:
+        yield
+    finally:
+        fn.backward = original
+
+
+# The weight change is taken both ways, for two draws: a ReLU whose input sits within
+# rounding of 0 (a whole empty BEV region shares one value per channel) flips on the side
+# that rounds across it, and a signed change moves that input across 0 only half the
+# time (``--noise-probe``; PERF.md has its readings)
+PERTURBATIONS = [(sign, seed) for seed in (1, 2) for sign in (1, -1)]
+NOISE_TERMS = ("permutation", *(f"{'+' if sign > 0 else '-'}2^-19 weights, draw {seed}"
+                                 for sign, seed in PERTURBATIONS))
+BATCH_PERMUTATION = [2, 0, 3, 1]
+
+
+def permuted(batch):
+    """The batch's training inputs and targets in ``BATCH_PERMUTATION``'s order."""
+    return {k: ([a[BATCH_PERMUTATION] for a in v] if isinstance(v, list)
+                else v[BATCH_PERMUTATION])
+            for k, v in batch.items() if k in ("points", "hm", "anno_box", "ind", "mask",
+                                               "cat")}
+
+
+def noise_grads_of(model, batch, device, cfg, n_steps_total):
+    """The gradients of ``NOISE_TERMS``' steps of ``model`` on ``device``, in order."""
+    return [step_with_grads(model, permuted(batch), device, cfg, n_steps_total)[1],
+            *(step_with_grads(model, batch, device, cfg, n_steps_total,
+                              perturb=sign * ULP_PERTURBATION, perturb_seed=seed)[1]
+              for sign, seed in PERTURBATIONS)]
+
+
+def compare_steps(model, card, cpu, noise_grads, lr0):
+    """The card's train step (``card``: loss, gradients, state, library error) against
+    the CPU's (``cpu``), with the noise floor from the CPU's gradients ``noise_grads``
+    (one dict for each of ``NOISE_TERMS``). Returns (worst readings, failures, leaves);
+    each reading but the loss's is an error over what is allowed, so above 1 fails."""
+    loss_gpu, g_gpu, s_gpu, lib_gpu = card
+    loss_cpu, g_cpu, s_cpu, lib_cpu = cpu
+    worst = {"loss_rel_err": abs(loss_gpu - loss_cpu) / abs(loss_cpu),
+             "grad_err_over_tol": 0.0, "param_err_over_allowed": 0.0, "stat_rel_err": 0.0,
+             **{f"grad_err_over_tol_{t}": 0.0 for t in NOISE_TERMS}}
+    failures, leaves = [], []
+    if not worst["loss_rel_err"] <= 1e-4:
+        failures.append(f"loss {loss_gpu} against {loss_cpu}")
+    for k, want in g_cpu.items():
+        got = g_gpu[k]
+        # the noise floor, measured on the reference alone (so a card that rounds
+        # worse cannot raise it): the change of the CPU's gradients under a
+        # permutation of the batch (the loss and the BN statistics are invariant; it
+        # reorders the cross-pixel sums) and under rounding-level changes of every
+        # weight, each both ways (they move each pixel's dot products, which the two
+        # sides round differently and no permutation reorders)
+        terms = [float((want - g[k]).abs().max()) for g in noise_grads]
+        noise = max(terms)
+        # plus, for a final conv's weight, both libraries' measured f32 error: a
+        # same-sign sum over B*H*W, whose rounding no permutation shows
+        base = 1e-4 * float(want.abs().max()) + 1e-6
+        lib = lib_gpu.get(k, 0.0) + lib_cpu.get(k, 0.0)
+        tol = max(base, GRAD_NOISE_MARGIN * noise) + lib
+        err = float((got - want).abs().max())
+        worst["grad_err_over_tol"] = max(worst["grad_err_over_tol"], err / tol)
+        for name, term in zip(NOISE_TERMS, terms):  # each term as the only floor
+            key = f"grad_err_over_tol_{name}"
+            worst[key] = max(worst[key], err / (max(base, GRAD_NOISE_MARGIN * term) + lib))
+        leaves.append((err / tol, k, err, float(want.abs().max()), noise))
+        if err > tol:
+            failures.append(f"grad {k}: {err:.3e} > {tol:.3e} (noise {noise:.3e})")
+        # Adam's first step is about lr * sign(g): where g is within its tolerance of
+        # zero either sign is right
+        old = model.state_dict()[k].detach().cpu().double()
+        allowed = 1e-5 * (1 + old.abs()) + (want.abs() <= tol) * 2.0 * lr0
+        ratio = float(((s_gpu[k] - s_cpu[k]).abs() / allowed).max())
+        worst["param_err_over_allowed"] = max(worst["param_err_over_allowed"], ratio)
+        if ratio > 1:
+            failures.append(f"param {k} after the update: {ratio:.2f} x allowed")
+    for k in s_cpu:
+        if "running" in k:
+            rel = float((s_gpu[k] - s_cpu[k]).abs().max() / s_cpu[k].abs().max().clamp_min(1e-6))
+            worst["stat_rel_err"] = max(worst["stat_rel_err"], rel)
+            if rel > 1e-4:
+                failures.append(f"BN statistic {k}: rel err {rel:.3e}")
+    return worst, failures, leaves
+
+
+def check_step_against_cpu(model, model_bf16, batch, device, cfg, n_steps_total) -> dict:
+    """The same train step on the card and on a CPU copy (plain versions), and two
+    controls that the same comparison must find wrong: the card's step with
+    ``without_second_moment_grad`` and the step of ``model_bf16`` (the same weights,
+    bf16 activations) on the card."""
+    def card_step(m):
+        loss, g, state, lr0, lib = step_with_grads(m, batch, device, cfg, n_steps_total)
+        return (loss, g, state, lib), lr0
+
+    t0 = time.perf_counter()
+    card, lr0 = card_step(model)
+    t_gpu = time.perf_counter() - t0
+    with without_second_moment_grad():
+        no_gss = card_step(model)[0]
+    bf16 = card_step(model_bf16)[0]
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    loss_cpu, g_cpu, s_cpu, _, lib_cpu = step_with_grads(model, batch, cpu, cfg,
+                                                         n_steps_total)
+    noise_grads = noise_grads_of(model, batch, cpu, cfg, n_steps_total)
+    t_cpu = time.perf_counter() - t0
+    reference = (loss_cpu, g_cpu, s_cpu, lib_cpu)
+
+    worst, failures, leaves = compare_steps(model, card, reference, noise_grads, lr0)
+    lib_gpu = card[3]
+    log(f"  one step on the card against a CPU copy: loss {card[0]:.6f} / {loss_cpu:.6f}; "
+        f"worst gradient error {worst['grad_err_over_tol']:.3f} of its tolerance "
+        f"({GRAD_NOISE_MARGIN}x the noise floor or 1e-4 of the leaf's largest gradient); "
+        f"worst parameter error {worst['param_err_over_allowed']:.3f} of allowed; BN "
+        f"statistics rel err {worst['stat_rel_err']:.2e} (tol 1e-4); one step on the "
+        f"card {t_gpu:.1f} s, {1 + len(NOISE_TERMS)} on the CPU {t_cpu:.1f} s")
+    for ratio, k, err, scale, noise in sorted(leaves, reverse=True)[:3]:
+        log(f"    gradient {k}: error {err:.3e} = {ratio:.3f} of tolerance; largest "
+            f"gradient {scale:.3e}, noise floor {noise:.3e}")
+    for k in lib_gpu:
+        log(f"    {k}: f32 library weight gradient against float64, card "
+            f"{lib_gpu[k]:.3e}, CPU {lib_cpu[k]:.3e}")
+    readings = {"sound": worst}
+    for name, c in (("no 2*y*gss", no_gss), ("bf16 model", bf16)):
+        readings[name], c_fail, c_leaves = compare_steps(model, c, reference, noise_grads,
+                                                         lr0)
+        top = sorted(c_leaves, reverse=True)[0]
+        log(f"  control {name}: {len(c_fail)} failures; worst gradient {top[1]} at "
+            f"{top[0]:.3f} of its tolerance (error {top[2]:.3e}, noise floor {top[4]:.3e})")
+        if not readings[name]["grad_err_over_tol"] > 1:
+            failures.append(f"control {name}: its gradients pass the comparison")
+    keys = ["loss_rel_err", "grad_err_over_tol",
+            *(f"grad_err_over_tol_{t}" for t in NOISE_TERMS), "param_err_over_allowed",
+            "stat_rel_err"]
+    log("    reading                                      " + "".join(
+        f"{n:>14}" for n in readings))
+    for k in keys:
+        log(f"    {k:<45}" + "".join(f"{r[k]:>14.4g}" for r in readings.values()))
+    if failures:
+        raise AssertionError("the card's train step differs from the CPU's: "
+                             + "; ".join(failures[:10]))
+    return dict(loss_gpu=card[0], loss_cpu=loss_cpu, cpu_steps_s=t_cpu,
+                controls={k: v for k, v in readings.items() if k != "sound"}, **worst)
+
+
+def pp_training(root: Path):
+    """The Waymo PP config's detector (fresh init from seed 0) on the card, its train
+    state (OneCycle'd AdamW) and a synthetic training set written under ``root``:
+    (cfg, model, state, dataset, total steps of the schedule)."""
+    from tdal_torch.data.detection import DetectionDataset
+    from tdal_torch.data.synthetic import make_synthetic_dataset
+    from tdal_torch.models.builder import build_assigner, build_detector, build_voxel_config
+    from tdal_torch.runtime.config import Config
+    from tdal_torch.runtime.schedules import adam_with_schedule, one_cycle
+    from tdal_torch.runtime.train_state import TrainState, param_count
+
+    cfg = Config.fromfile(PP_CONFIG)
+    voxel_cfg = build_voxel_config(cfg.voxel_generator, train=True)
+    model = build_detector(cfg.model, voxel_cfg, seed=0)
+    assigner = build_assigner(cfg.assigner, model)
+    pre = cfg.train_preprocessor
+    total_steps = PP_DATA["n_frames"] // PP_BATCH * cfg.total_epochs
+    lr, mom = one_cycle(cfg.lr_config["lr_max"], total_steps, tuple(cfg.lr_config["moms"]),
+                        cfg.lr_config["div_factor"], cfg.lr_config["pct_start"])
+    opt = adam_with_schedule(model.parameters(), lr, cfg.optimizer["wd"],
+                             cfg.grad_clip["max_norm"], mom)
+    log(f"  {PP_CONFIG}: {param_count(model)} parameters, grid "
+        f"{tuple(int(g) for g in voxel_cfg.grid_size)}, batch {PP_BATCH}, f32")
+    t0 = time.perf_counter()
+    infos, _ = make_synthetic_dataset(root / "data", **PP_DATA)
+    ds = DetectionDataset(
+        infos, cfg.class_names, assigner, voxel_cfg, mode="train",
+        max_points=cfg.data["train"]["max_points"],
+        global_rot_noise=tuple(pre["global_rot_noise"]),
+        global_scale_noise=tuple(pre["global_scale_noise"]),
+        shuffle_points=pre["shuffle_points"], seed=0)
+    log(f"  {len(ds)} synthetic frames written in {time.perf_counter() - t0:.1f} s")
+    return cfg, model, TrainState(model, opt), ds, total_steps
+
+
+def phase_train(device) -> dict:
+    from tdal_torch.data.detection import collate_detection
+    from tdal_torch.models.builder import build_detector, build_voxel_config
+    from tdal_torch.ops import conv3x3 as cv
+    from tdal_torch.pipeline.detector_run import train_detector
+
+    logger = logging.getLogger("chip_smoke")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        cfg, model, state, ds, total_steps = pp_training(root)
+        head = cfg.model["bbox_head"]
+
+        def run(tag, epochs):
+            work = root / tag
+            t0 = time.perf_counter()
+            train_detector(state, ds, head["code_weights"], n_epoch=epochs,
+                           batch_size=PP_BATCH, logger=logger, work_dir=work,
+                           weight=head["weight"], log_every=1)
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            rows = [json.loads(line) for line in
+                    (work / "logs" / "metrics.jsonl").read_text().splitlines()]
+            return elapsed, rows
+
+        warm_s, warm_rows = run("warm", PP_WARM_EPOCHS)
+        torch.cuda.reset_peak_memory_stats()
+        for k in cv.launches:
+            cv.launches[k] = 0
+        timed_s, rows = run("timed", PP_TIMED_EPOCHS)
+        launches = dict(cv.launches)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        losses = [r["loss"] for r in warm_rows + rows]
+        log(f"  losses {losses}")
+        log(f"  kernel launches in the {PP_TIMED} timed steps: {launches}")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"a non-finite loss: {losses}")
+        if len(rows) != PP_TIMED:
+            raise AssertionError(f"{len(rows)} timed steps logged, expected {PP_TIMED}")
+        for name, n in launches.items():
+            if n != PP_TIMED * PP_SITES:
+                raise AssertionError(f"{name}: {n} launches in {PP_TIMED} steps, expected "
+                                     f"{PP_SITES} per step")
+
+        # the step alone on one batch, synchronised (host data excluded)
+        from tdal_torch.pipeline.detector_engine import make_detector_steps
+
+        batch = collate_detection([ds[i] for i in range(PP_BATCH)])
+        step = make_detector_steps(model, head["code_weights"], head["weight"])
+
+        step_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        step_ms = 1e3 * statistics.median(step_s)
+        # the checkpoint that train_detector writes at each epoch's end, alone
+        t0 = time.perf_counter()
+        state.save(root / "checkpoint_probe.pt")
+        ckpt_s = time.perf_counter() - t0
+        frames_per_s = PP_TIMED * PP_BATCH / timed_s
+        frames_per_s_no_ckpt = PP_TIMED * PP_BATCH / (timed_s - PP_TIMED_EPOCHS * ckpt_s)
+        log(f"  train_detector: {PP_TIMED_EPOCHS} epochs of {PP_TIMED // PP_TIMED_EPOCHS} "
+            f"steps in {timed_s:.3f} s (data, logging, a cold prefetch start and a "
+            f"checkpoint at each epoch included), {frames_per_s:.2f} training frames/s; "
+            f"one checkpoint alone {ckpt_s:.3f} s, so {frames_per_s_no_ckpt:.2f} frames/s "
+            f"without them (derived); step alone {step_ms:.1f} ms (median of 3: "
+            f"{', '.join(f'{1e3 * v:.1f}' for v in step_s)}); peak memory "
+            f"{peak_gib:.2f} GiB; warm-up {warm_s:.1f} s")
+        voxel_cfg = build_voxel_config(cfg.voxel_generator, train=True)
+        model_bf16 = build_detector(dict(cfg.model, dtype="bfloat16"), voxel_cfg, seed=0)
+        model_bf16.load_state_dict(model.state_dict())
+        check = check_step_against_cpu(model, model_bf16, batch, device, cfg, total_steps)
+    return dict(launches=launches, losses=losses, step_ms=step_ms, step_s=step_s,
+                timed_s=timed_s, frames_per_s=frames_per_s, checkpoint_s=ckpt_s,
+                frames_per_s_without_checkpoints=frames_per_s_no_ckpt, peak_gib=peak_gib,
+                **check)
+
+
+# a rounding-level relative change of every weight: the probe's stand-in for the
+# card-vs-CPU rounding difference, which costs a minute and a half of CPU to measure
+PROBE_ROUNDING = 2.0**-22
+PROBE_FLOORS = {"one-sided": NOISE_TERMS[:2], "one mirrored pair": NOISE_TERMS[:3],
+                "two mirrored pairs (phase 6)": NOISE_TERMS}
+
+
+def noise_probe(device, n_states: int) -> dict:
+    """On the card alone: how often phase 6's comparison would fail a step that differs
+    from the reference by rounding only, for each floor of ``PROBE_FLOORS``. Over
+    ``n_states`` training states (one epoch apart), three draws of a ``PROBE_ROUNDING``
+    change of every weight, each read as phase 6 reads the card's error (the largest
+    change of a leaf over max(1e-4 of its largest gradient, 8x the floor); above 1
+    fails)."""
+    from tdal_torch.data.detection import collate_detection
+    from tdal_torch.pipeline.detector_run import train_detector
+
+    readings = {name: [] for name in PROBE_FLOORS}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        cfg, model, state, ds, total_steps = pp_training(root)
+        head = cfg.model["bbox_head"]
+        batch = collate_detection([ds[i] for i in range(PP_BATCH)])
+        t0 = time.perf_counter()
+        for s in range(n_states):
+            train_detector(state, ds, head["code_weights"], n_epoch=1, batch_size=PP_BATCH,
+                           logger=logging.getLogger("chip_smoke"), work_dir=root / f"s{s}",
+                           weight=head["weight"], log_every=1)
+
+            def grads(perturb=0.0, seed=1):
+                return step_with_grads(model, batch, device, cfg, total_steps, perturb,
+                                       seed)[1]
+
+            g0 = grads()
+            change = {t: {k: float((g[k] - g0[k]).abs().max()) for k in g0}
+                      for t, g in zip(NOISE_TERMS, noise_grads_of(model, batch, device, cfg,
+                                                                  total_steps))}
+            worst = {}
+            for draw in range(3):
+                g = grads(PROBE_ROUNDING, seed=10 + draw)
+                for name, terms in PROBE_FLOORS.items():
+                    reading = max(
+                        (float((g[k] - g0[k]).abs().max()) / max(
+                            1e-4 * float(g0[k].abs().max()) + 1e-6,
+                            GRAD_NOISE_MARGIN * max(change[t][k] for t in terms)), k)
+                        for k in g0)
+                    readings[name].append(reading[0])
+                    worst[name] = max(worst.get(name, (0.0, "")), reading)
+            log(f"  state {s}: worst of 3 draws " + "; ".join(
+                f"{name} {r:.3f} ({k})" for name, (r, k) in worst.items())
+                + f"; {time.perf_counter() - t0:.0f} s")
+    summary = {}
+    for name, values in readings.items():
+        values.sort()
+        summary[name] = dict(median=values[len(values) // 2], max=values[-1],
+                             over_1=sum(v > 1 for v in values), n=len(values))
+        log(f"  floor {name} ({', '.join(PROBE_FLOORS[name])}): {summary[name]['over_1']} "
+            f"of {len(values)} rounding-level steps fail; median {summary[name]['median']:.4g}"
+            f", largest {summary[name]['max']:.4g} of the tolerance")
+    return summary
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--noise-probe", type=int, default=0, metavar="STATES",
+                        help="build, then run only the noise-floor probe over STATES "
+                             "training states (see noise_probe)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
@@ -386,8 +943,16 @@ def main() -> int:
 
     log("phase 2 build")
     t0 = time.perf_counter()
-    kernels()
+    lib = kernels()
     log(f"  built the kernels with nvcc in {time.perf_counter() - t0:.1f} s")
+    regs = [int(w) for w in re.findall(r"Used (\d+) registers", lib.build_log)]
+    spills = sum(int(w) for w in re.findall(r"(\d+) bytes spill stores", lib.build_log))
+    log(f"  ptxas: {len(regs)} kernels, at most {max(regs)} registers a thread, "
+        f"{spills} bytes of spill stores in all")
+    if args.noise_probe:
+        log("noise-floor probe")
+        print(json.dumps(noise_probe(device, args.noise_probe)))
+        return 0
 
     log("phase 3 kernels against their twins")
     kres = phase_kernels(device)
@@ -395,6 +960,15 @@ def main() -> int:
 
     log("phase 4 stages 2-6 end to end")
     chain = phase_chain(device)
+
+    log("phase 5 conv kernels against their twins")
+    from tdal_torch.ops import conv3x3 as cv
+
+    cres = phase_conv(device)
+    log(f"  launches in phase 5 (checks and timing, not counted below): {dict(cv.launches)}")
+
+    log("phase 6 PointPillars training on the Waymo config")
+    train = phase_train(device)
 
     entries = []
     for name, by_case in kres.items():
@@ -406,6 +980,25 @@ def main() -> int:
             bound_by=main_case["bound_by"], library_ms=None,
             shape="static B=64 N=4096 Cin=3, f32 operands", cases=by_case,
         ))
+    for name, by_case in cres.items():
+        main_case = by_case[CONV_MAIN]
+        entries.append(dict(
+            name=name, route="cuda", source=CONV_SOURCE, replaces=CONV_REPLACES[name],
+            launches=train["launches"][name], max_abs_err=main_case["max_abs_err"],
+            ms=main_case["ms"], plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
+            bound_by=main_case["bound_by"], library_ms=main_case["library_ms"],
+            shape=f"{CONV_MAIN}: B=4 468x468 64->64",
+            **({"also_replaces": "tdal/ops/pallas_conv.py:622 (K6: in_act off)"}
+               if name == "conv3x3_wgrad" else {}),
+        ))
+    # derived, not traced: phase 5's f32 kernel times at each conv site of the step
+    kernel_ms = sum(n * sum(cres[name][f"{shape} f32" + (" in_act" if act else "")]["ms"]
+                            for name in cres)
+                    for shape, act, n in PP_SITE_CASES)
+    log(f"  derived: the {PP_SITES} conv sites' K3 + K4 + K5 take {kernel_ms:.1f} ms of the "
+        f"{train['step_ms']:.1f} ms step ({100 * kernel_ms / train['step_ms']:.0f}%)")
+    train_summary = {k: v for k, v in train.items() if k != "launches"}
+    log(f"  training summary: {json.dumps(train_summary)}")
     log(f"card: {kind} | {smi}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

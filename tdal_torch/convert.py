@@ -3,8 +3,12 @@
 The trees are nested dicts of numpy arrays (the caller does any ``jax -> numpy``
 step; nothing here sees a jax array). Dense ``kernel (in, out)`` becomes Linear
 ``weight (out, in)``; BatchNorm ``scale/bias`` + ``mean/var`` become
-``weight/bias/running_mean/running_var``. flax's auto-names map to the port's
-attribute paths through ``_CHILDREN``.
+``weight/bias/running_mean/running_var``. For the labelers flax's auto-names map to
+the port's attribute paths through ``_CHILDREN``; the PointPillars detector has its
+own walk (``pointpillars_state_dict``): conv ``kernel`` HWIO becomes OIHW, the flax
+``ConvTranspose`` kernel (which flax applies spatially flipped) becomes the
+``ConvTranspose2d`` weight (Ci, Co, s, s), and ``FusedConvBN``'s ``kernel,
+conv_bias, scale, bias`` + ``mean, var`` keep their names on the port's module.
 """
 
 from __future__ import annotations
@@ -76,4 +80,82 @@ def flax_to_state_dict(model: nn.Module, params: dict, batch_stats: dict | None 
 def load_flax(model: nn.Module, params: dict, batch_stats: dict | None = None) -> nn.Module:
     """Load flax trees into ``model`` (strict: every parameter must be covered)."""
     model.load_state_dict(flax_to_state_dict(model, params, batch_stats))
+    return model
+
+
+# ---------------------------------------------------------------------------
+# PointPillars detector
+# ---------------------------------------------------------------------------
+
+
+def _conv(kernel) -> torch.Tensor:
+    """flax conv kernel (kh, kw, Ci, Co) -> torch (Co, Ci, kh, kw)."""
+    return _t(kernel).permute(3, 2, 0, 1).contiguous()
+
+
+def _deconv(kernel) -> torch.Tensor:
+    """flax ConvTranspose kernel (s, s, Ci, Co), applied flipped (output offset (u, v)
+    reads kernel[s-1-u, s-1-v]) -> torch ConvTranspose2d weight (Ci, Co, s, s)."""
+    return _t(kernel).flip(0, 1).permute(2, 3, 0, 1).contiguous()
+
+
+def _bn(out, prefix, p, stats):
+    out[prefix + "weight"] = _t(p["scale"])
+    out[prefix + "bias"] = _t(p["bias"])
+    out[prefix + "running_mean"] = _t(stats["mean"])
+    out[prefix + "running_var"] = _t(stats["var"])
+
+
+def _fused(out, prefix, p, stats):
+    out[prefix + "weight"] = _conv(p["kernel"])
+    if "conv_bias" in p:
+        out[prefix + "conv_bias"] = _t(p["conv_bias"])
+    out[prefix + "scale"] = _t(p["scale"])
+    out[prefix + "bias"] = _t(p["bias"])
+    out[prefix + "running_mean"] = _t(stats["mean"])
+    out[prefix + "running_var"] = _t(stats["var"])
+
+
+def pointpillars_state_dict(model: nn.Module, params: dict, batch_stats: dict) -> dict:
+    """``state_dict`` of a ``tdal_torch.models.detectors.PointPillars`` from the flax
+    trees of ``tdal.models.detectors.PointPillars``."""
+    out: dict = {}
+    p, bs = params["PillarFeatureNet_0"], batch_stats["PillarFeatureNet_0"]
+    for i in range(len(model.reader.pfn_layers)):
+        name, pre = f"PFNLayer_{i}", f"reader.pfn_layers.{i}."
+        out[pre + "linear.weight"] = _t(p[name]["Dense_0"]["kernel"]).t().contiguous()
+        _bn(out, pre + "norm.", p[name]["MaskedBatchNorm_0"], bs[name]["MaskedBatchNorm_0"])
+
+    p, bs = params["RPN_0"], batch_stats["RPN_0"]
+    k = 0
+    for i, block in enumerate(model.rpn.blocks):
+        for j, layer in enumerate(block):
+            name, pre = f"ConvBNReLU_{k}", f"rpn.blocks.{i}.{j}."
+            k += 1
+            if layer.fused is not None:
+                _fused(out, pre + "fused.", p[name]["FusedConvBN_0"],
+                       bs[name]["FusedConvBN_0"])
+            else:
+                out[pre + "conv.weight"] = _conv(p[name]["Conv_0"]["kernel"])
+                _bn(out, pre + "bn.", p[name]["BatchNorm_0"], bs[name]["BatchNorm_0"])
+    for j in range(len(model.rpn.deblocks)):
+        name, pre = f"DeconvBNReLU_{j}", f"rpn.deblocks.{j}."
+        d = p[name]
+        out[pre + "conv.weight"] = (_deconv(d["ConvTranspose_0"]["kernel"])
+                                    if "ConvTranspose_0" in d else _conv(d["Conv_0"]["kernel"]))
+        _bn(out, pre + "bn.", d["BatchNorm_0"], bs[name]["BatchNorm_0"])
+
+    p, bs = params["CenterHead_0"], batch_stats["CenterHead_0"]
+    _fused(out, "head.shared.", p["FusedConvBN_0"], bs["FusedConvBN_0"])
+    for t in range(len(model.head.tasks)):
+        sp, sbs, pre = p[f"SepHead_{t}"], bs[f"SepHead_{t}"], f"head.tasks.{t}."
+        _fused(out, pre + "branch_convbn0.", sp["branch_convbn0"], sbs["branch_convbn0"])
+        out[pre + "final_conv_weight"] = _conv(sp["final_conv_kernel"])
+        out[pre + "final_conv_bias"] = _t(sp["final_conv_bias"])
+    return out
+
+
+def load_flax_pointpillars(model: nn.Module, params: dict, batch_stats: dict) -> nn.Module:
+    """Load tdal's PointPillars trees into ``model`` (strict)."""
+    model.load_state_dict(pointpillars_state_dict(model, params, batch_stats))
     return model

@@ -1,0 +1,155 @@
+"""CenterPoint detection head and its CenterNet losses, NHWC.
+
+Port of ``tdal/models/center_head.py`` (``SepHead`` :28-223, ``CenterHead`` :226-282,
+``_gather_feat``, ``fast_focal_loss``, ``reg_loss``, ``center_head_loss`` :290-370).
+Decode, NMS and predict arrive with the inference slice.
+
+``SepHead`` fuses its branches as tdal does: the first conv is one dense
+``FusedConvBN`` over every branch (``branch_convbn0``; in training its input side
+applies the shared conv's normalise + ReLU inside the K3 kernel), the final conv is
+block-diagonal (``final_conv_weight`` OIHW, ``final_conv_bias``; the mask is applied
+to the weight, so its gradient outside the blocks is zero), run by cuDNN as tdal
+leaves it to XLA. Head BatchNorms are the reference's default ``BatchNorm2d``: eps
+1e-5, momentum 0.1.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from tdal_torch.models.layers import FusedConvBN, conv_nhwc
+
+_HEAD_BN = dict(momentum=0.1, eps=1e-5)
+COMMON_HEADS = {"reg": (2, 2), "height": (1, 2), "dim": (3, 2), "rot": (2, 2)}
+
+
+class SepHead(nn.Module):
+    """Per-output-name branches of two convs each, fused across branches.
+    heads: {name: (out_ch, 2)}."""
+
+    def __init__(self, in_channels: int, heads: dict, head_conv: int = 64,
+                 final_kernel: int = 3, init_bias: float = -2.19, dtype=torch.float32):
+        super().__init__()
+        self.names = list(heads)
+        if {heads[n][1] for n in self.names} != {2} or final_kernel != 3:
+            raise ValueError("tdal_torch SepHead takes two 3x3 convs per branch (the "
+                             "configs' heads); other depths are not ported yet")
+        self.outs = [heads[n][0] for n in self.names]
+        self.dtype = dtype
+        g = len(self.names)
+        self.branch_convbn0 = FusedConvBN(in_channels, head_conv * g, use_bias=True,
+                                          dtype=dtype, **_HEAD_BN)
+        # final block-diagonal conv: branch i maps its head_conv slice to its outputs
+        cin, cout = head_conv * g, sum(self.outs)
+        mask = torch.zeros(cout, cin, 3, 3)
+        co = 0
+        for i, c in enumerate(self.outs):
+            mask[co : co + c, i * head_conv : (i + 1) * head_conv] = 1.0
+            co += c
+        self.final_conv_weight = nn.Parameter(torch.zeros(cout, cin, 3, 3))
+        self.final_conv_bias = nn.Parameter(torch.cat([
+            torch.full((c,), init_bias if n == "hm" else 0.0)
+            for n, c in zip(self.names, self.outs)]))
+        self.register_buffer("final_conv_mask", mask, persistent=False)
+
+    def forward(self, x, pre=None):
+        h = self.branch_convbn0(x, pre=pre)
+        w = self.final_conv_weight * self.final_conv_mask
+        y = conv_nhwc(h, w, padding=1, dtype=self.dtype) + self.final_conv_bias.to(self.dtype)
+        out, co = {}, 0
+        for name, c in zip(self.names, self.outs):
+            out[name] = y[..., co : co + c]
+            co += c
+        return out
+
+
+class CenterHead(nn.Module):
+    """x (B, H, W, Cin) -> list of per-task dicts of NHWC maps. The shared conv
+    (``shared``, a FusedConvBN with a conv bias) hands its normalise + ReLU to every
+    task's first branch conv (``emit_raw`` chain)."""
+
+    def __init__(self, in_channels: int, tasks: Sequence[dict], common_heads: dict = None,
+                 share_conv_channel: int = 64, num_hm_conv: int = 2,
+                 init_bias: float = -2.19, dtype=torch.float32):
+        super().__init__()
+        common = dict(common_heads or COMMON_HEADS)
+        self.shared = FusedConvBN(in_channels, share_conv_channel, use_bias=True,
+                                  dtype=dtype, **_HEAD_BN)
+        self.tasks = nn.ModuleList()
+        for task in tasks:
+            heads = dict(common)
+            heads["hm"] = (len(task["class_names"]), num_hm_conv)
+            self.tasks.append(SepHead(share_conv_channel, heads, final_kernel=3,
+                                      init_bias=init_bias, dtype=dtype))
+
+    def forward(self, x):
+        x, pre = self.shared(x, emit_raw=True)
+        return [task(x, pre=pre) for task in self.tasks]
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+
+def _gather_feat(feat, ind):
+    """feat (B, HW, C), ind (B, M) -> (B, M, C)."""
+    return torch.gather(feat, 1, ind[..., None].expand(-1, -1, feat.shape[-1]))
+
+
+def fast_focal_loss(out, target, ind, mask, cat):
+    """out/target (B, H, W, C) in [0, 1]; ind/mask/cat (B, M). CornerNet
+    penalty-reduced focal loss (losses/centernet_loss.py:26-54)."""
+    b = out.shape[0]
+    gt = torch.pow(1 - target, 4)
+    neg_loss = (torch.log(1 - out) * torch.pow(out, 2) * gt).sum()
+    pos_all = _gather_feat(out.reshape(b, -1, out.shape[-1]), ind)
+    pos_pred = (pos_all * F.one_hot(cat, out.shape[-1]).to(pos_all.dtype)).sum(-1)
+    num_pos = mask.sum()
+    pos_loss = (torch.log(pos_pred) * torch.pow(1 - pos_pred, 2) * mask).sum()
+    return torch.where(num_pos == 0, -neg_loss,
+                       -(pos_loss + neg_loss) / num_pos.clamp_min(1))
+
+
+def reg_loss(output, mask, ind, target):
+    """output (B, H, W, D); mask/ind (B, M); target (B, M, D) -> per-dim L1 (D,)
+    (losses/centernet_loss.py:6-24)."""
+    b = output.shape[0]
+    pred = _gather_feat(output.reshape(b, -1, output.shape[-1]), ind)
+    m = mask.to(pred.dtype)[..., None]
+    loss = torch.abs(pred * m - target * m) / (m.sum() + 1e-4)
+    return loss.sum(dim=(0, 1))
+
+
+def center_head_loss(preds_dicts, targets, code_weights, weight: float = 2.0,
+                     has_vel: bool = False):
+    """Total CenterHead loss over tasks and its logs. targets: per-task lists
+    {hm, anno_box, ind, mask, cat} of tensors (center_head.py:250-291)."""
+    total, logs = 0.0, {}
+    for task_id, preds in enumerate(preds_dicts):
+        hm = torch.clamp(torch.sigmoid(preds["hm"]), 1e-4, 1 - 1e-4)
+        hm_loss = fast_focal_loss(
+            hm, targets["hm"][task_id], targets["ind"][task_id],
+            targets["mask"][task_id].float(), targets["cat"][task_id],
+        )
+        target_box = targets["anno_box"][task_id]
+        parts = [preds["reg"], preds["height"], preds["dim"]]
+        if has_vel:
+            parts.append(preds["vel"])
+        else:
+            target_box = torch.cat([target_box[..., :6], target_box[..., -2:]], dim=-1)
+        parts.append(preds["rot"])
+        box_loss = reg_loss(torch.cat(parts, dim=-1), targets["mask"][task_id],
+                            targets["ind"][task_id], target_box)
+        loc_loss = (box_loss * torch.as_tensor(code_weights, dtype=box_loss.dtype,
+                                               device=box_loss.device)).sum()
+        total = total + hm_loss + weight * loc_loss
+        logs[f"hm_loss_task{task_id}"] = hm_loss
+        logs[f"loc_loss_task{task_id}"] = loc_loss
+        logs[f"num_positive_task{task_id}"] = targets["mask"][task_id].sum()
+    logs["loss"] = total
+    return total, logs

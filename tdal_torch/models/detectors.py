@@ -1,0 +1,62 @@
+"""CenterPoint with the PointPillars backbone.
+
+Port of ``tdal/models/detectors.py:PointPillars``: raw padded points (B, N, D) ->
+voxelize on the device -> pillar feature net -> BEV scatter -> RPN -> CenterHead.
+Train or eval follows ``module.training``. BEV spatial sharding and the deformable
+head (``bev_sharding``, ``dcn_head``) are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from tdal_torch.core.voxel import VoxelConfig, voxelize_batch
+from tdal_torch.models.center_head import COMMON_HEADS, CenterHead
+from tdal_torch.models.readers import PillarFeatureNet, scatter_to_bev
+from tdal_torch.models.rpn import RPN
+
+
+class PointPillars(nn.Module):
+    def __init__(self, voxel_cfg: VoxelConfig, tasks: Sequence[dict],
+                 num_input_features: int = 5, num_filters: Sequence[int] = (64, 64),
+                 rpn_layer_nums: Sequence[int] = (3, 5, 5),
+                 rpn_ds_strides: Sequence[int] = (1, 2, 2),
+                 rpn_ds_filters: Sequence[int] = (64, 128, 256),
+                 rpn_us_strides: Sequence[int] = (1, 2, 4),
+                 rpn_us_filters: Sequence[int] = (128, 128, 128),
+                 with_velocity: bool = False, dtype=torch.float32):
+        super().__init__()
+        self.voxel_cfg = voxel_cfg
+        self.tasks = [dict(t) for t in tasks]
+        self.with_velocity = with_velocity
+        self.rpn_ds_strides, self.rpn_us_strides = tuple(rpn_ds_strides), tuple(rpn_us_strides)
+        self.reader = PillarFeatureNet(
+            num_input_features, num_filters, voxel_cfg.voxel_size,
+            voxel_cfg.point_cloud_range, dtype=dtype)
+        self.rpn = RPN(num_filters[-1], rpn_layer_nums, rpn_ds_strides, rpn_ds_filters,
+                       rpn_us_strides, rpn_us_filters, dtype=dtype)
+        common = dict(COMMON_HEADS)
+        if with_velocity:
+            common["vel"] = (2, 2)
+        self.head = CenterHead(self.rpn.out_channels, self.tasks, common, dtype=dtype)
+
+    @property
+    def out_size_factor(self) -> int:
+        f = int(np.prod(self.rpn_ds_strides))
+        return max(f // int(self.rpn_us_strides[-1]), 1)
+
+    @property
+    def num_classes(self):
+        return [len(t["class_names"]) for t in self.tasks]
+
+    def forward(self, points):
+        voxels, coords, num_points, n_vox = voxelize_batch(points, self.voxel_cfg)
+        feats = self.reader(voxels, num_points, coords)
+        valid = torch.arange(feats.shape[1], device=feats.device)[None, :] < n_vox[:, None]
+        nx, ny, _ = (int(g) for g in self.voxel_cfg.grid_size)
+        canvas = scatter_to_bev(feats * valid[..., None], coords, valid, ny, nx)
+        return self.head(self.rpn(canvas))

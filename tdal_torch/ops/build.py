@@ -1,13 +1,16 @@
 """Build the port's CUDA kernels at first use, from the sources in the repository.
 
-``kernels()`` compiles ``csrc/*.cu`` for ``sm_90a`` with ``nvcc`` into a shared library
-with a plain C interface, ``build/tdal_torch_kernels/libtdal_torch_kernels.so``
-(listed in ``.gitignore``), the first time a process launches a kernel, and loads it
-with ``ctypes``. The sources include no PyTorch header, so the build takes seconds.
-The returned object has ``encoder_tile()``, ``seg_encoder(...)`` and
-``seg_decoder(...)`` taking tensors; each launches on PyTorch's current stream and
-checks the launch with ``tdal_last_error()`` right after it. Importing this module
-builds nothing.
+``kernels()`` compiles every ``csrc/*.cu`` for ``sm_90a``, one ``nvcc`` process per
+source, all started together, and links the objects into a shared library with a
+plain C interface, ``build/tdal_torch_kernels/libtdal_torch_kernels.so`` (listed in
+``.gitignore``), the first time a process launches a kernel; it loads it with
+``ctypes``. The sources include no PyTorch header, so the build takes seconds. The
+returned object has one launcher per kernel taking tensors (``seg_encoder``,
+``seg_decoder``, ``conv3x3_fwd_stats``, ``conv3x3_fwd``, ``conv3x3_wgrad``) and a few
+geometry queries; each launcher runs on PyTorch's current stream and checks the launch
+with ``tdal_last_error()`` right after it. ``build_log`` keeps ``nvcc``'s
+``-Xptxas -v`` report (registers, shared memory, spills per kernel). Importing this
+module builds nothing.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import shutil
 import subprocess
 import tempfile
 from pathlib import Path
@@ -33,37 +37,60 @@ def kernels():
         raise RuntimeError("tdal_torch: no CUDA toolkit found to build the kernels")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / "libtdal_torch_kernels.so"
-    # build under a temporary name, then rename: concurrent processes never load a
+    nvcc = str(Path(CUDA_HOME) / "bin" / "nvcc")
+    # build under temporary names, then rename: concurrent processes never load a
     # half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [
-        str(Path(CUDA_HOME) / "bin" / "nvcc"), GENCODE, "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-o", tmp, *sorted(map(str, CSRC.glob("*.cu"))),
-    ]
-    subprocess.run(cmd, check=True)
-    os.replace(tmp, out)
-    return _Kernels(out)
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    try:
+        sources = sorted(CSRC.glob("*.cu"))
+        procs = [
+            subprocess.Popen(
+                [nvcc, GENCODE, "-std=c++17", "-O3", "-Xptxas=-v", "-Xcompiler", "-fPIC",
+                 "-c", str(src), "-o", str(work / f"{src.stem}.o")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src in sources
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        for src, p, text in zip(sources, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"tdal_torch: nvcc failed on {src.name}:\n{text}")
+        lib = work / "lib.so"
+        subprocess.run([nvcc, GENCODE, "-shared", "-o", str(lib),
+                        *(str(work / f"{s.stem}.o") for s in sources)], check=True)
+        os.replace(lib, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return _Kernels(out, "".join(logs))
 
 
 class _Kernels:
-    """Tensor-level launchers over the plain C library of ``csrc/fused_pointnet.cu``.
-    ``tdal_torch/ops/fused_pointnet.py`` has checked every tensor and allocated every
-    output and scratch buffer before it calls in here."""
+    """Tensor-level launchers over the plain C library of ``csrc/*.cu``.
+    ``tdal_torch/ops/fused_pointnet.py`` and ``tdal_torch/ops/conv3x3.py`` have checked
+    every tensor and allocated every output and scratch buffer before they call in
+    here."""
 
-    def __init__(self, path: Path):
+    def __init__(self, path: Path, build_log: str = ""):
         lib = ctypes.CDLL(str(path))
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.tdal_last_error.argtypes, lib.tdal_last_error.restype = [], I
-        lib.tdal_encoder_tile.argtypes, lib.tdal_encoder_tile.restype = [], I
-        lib.tdal_seg_encoder.argtypes = [P, I, I, I, P, P, P, P, I, I, P]
-        lib.tdal_seg_encoder_reduce.argtypes = [P, I, I, P, P]
-        lib.tdal_seg_decoder_gproj.argtypes = [P, I, P, P, P, I, P]
-        lib.tdal_seg_decoder.argtypes = [P, P, I, I, P, P, P, P, P, I, P]
-        for name in ("tdal_seg_encoder", "tdal_seg_encoder_reduce",
-                     "tdal_seg_decoder_gproj", "tdal_seg_decoder"):
-            getattr(lib, name).restype = None
+        for name, args, res in (
+            ("tdal_last_error", [], I),
+            ("tdal_encoder_tile", [], I),
+            ("tdal_seg_encoder", [P, I, I, I, P, P, P, P, I, I, P], None),
+            ("tdal_seg_encoder_reduce", [P, I, I, P, P], None),
+            ("tdal_seg_decoder_gproj", [P, I, P, P, P, I, P], None),
+            ("tdal_seg_decoder", [P, P, I, I, P, P, P, P, P, I, P], None),
+            ("tdal_conv3x3_tiles", [I, I], I),
+            ("tdal_conv3x3_wgrad_chunks", [I, I], I),
+            ("tdal_conv3x3_fwd_stats", [P, P, I, I, I, I, I, P, P, I, P, P, P, P, I, P],
+             None),
+            ("tdal_conv3x3_fwd", [P, P, I, I, I, I, I, P, P, I, P, I, P], None),
+            ("tdal_conv3x3_wgrad", [P, P, I, I, I, I, I, P, P, I, I, P, P, I, P], None),
+        ):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, res
         self._lib = lib
+        self.build_log = build_log
 
     def _check(self, what: str):
         err = self._lib.tdal_last_error()
@@ -79,6 +106,12 @@ class _Kernels:
     @staticmethod
     def _ptr_array(ts):
         return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+
+    @staticmethod
+    def _bf16(t) -> int:
+        import torch
+
+        return int(t.dtype == torch.bfloat16)
 
     def encoder_tile(self) -> int:
         return self._lib.tdal_encoder_tile()
@@ -109,3 +142,38 @@ class _Kernels:
             int(bf16), s,
         )
         self._check("seg_decoder")
+
+    def conv3x3_tiles(self, H: int, W: int) -> int:
+        return self._lib.tdal_conv3x3_tiles(H, W)
+
+    def conv3x3_wgrad_chunks(self, C: int, Co: int) -> int:
+        return self._lib.tdal_conv3x3_wgrad_chunks(C, Co)
+
+    def conv3x3_fwd_stats(self, x, w, in_scale, in_shift, in_act: bool, bias, y, partial,
+                          stats):
+        B, H, W, C = x.shape
+        self._lib.tdal_conv3x3_fwd_stats(
+            x.data_ptr(), w.data_ptr(), B, H, W, C, w.shape[-1], in_scale.data_ptr(),
+            in_shift.data_ptr(), int(in_act), bias.data_ptr(), y.data_ptr(),
+            partial.data_ptr(), stats.data_ptr(), self._bf16(x), self._stream(x),
+        )
+        self._check("conv3x3_fwd_stats")
+
+    def conv3x3_fwd(self, x, w, scale, shift, relu: bool, y):
+        B, H, W, C = x.shape
+        self._lib.tdal_conv3x3_fwd(
+            x.data_ptr(), w.data_ptr(), B, H, W, C, w.shape[-1],
+            None if scale is None else scale.data_ptr(), shift.data_ptr(), int(relu),
+            y.data_ptr(), self._bf16(x), self._stream(x),
+        )
+        self._check("conv3x3_fwd")
+
+    def conv3x3_wgrad(self, x, gy, in_scale, in_shift, in_act: bool, splits: int, partial,
+                      dw):
+        B, H, W, C = x.shape
+        self._lib.tdal_conv3x3_wgrad(
+            x.data_ptr(), gy.data_ptr(), B, H, W, C, gy.shape[-1], in_scale.data_ptr(),
+            in_shift.data_ptr(), int(in_act), splits, partial.data_ptr(), dw.data_ptr(),
+            self._bf16(x), self._stream(x),
+        )
+        self._check("conv3x3_wgrad")

@@ -1,0 +1,290 @@
+"""3x3 stride-1 SAME NHWC convolution kernels (K3, K4, K5/K6), their plain-PyTorch
+twins, and the differentiable ops built on them.
+
+Port of ``tdal/ops/pallas_conv.py``. The CUDA source is
+``tdal_torch/ops/csrc/conv3x3.cu`` (design notes there), built at first use by
+``tdal_torch.ops.build``. Layout is tdal's: x (B, H, W, C), w (3, 3, C, Co) HWIO.
+
+Kernel wrappers (each runs its twin ``*_plain`` only when given CPU tensors; for CUDA
+tensors it launches the kernel or raises):
+
+- ``conv3x3_fwd_stats`` (K3): y = conv(act(x), w) + bias and stats = [sum y, sum y^2]
+  per channel over the image, with act(x) = relu(x*s + t) when ``in_act`` (the halo
+  outside the image stays zero) and x otherwise.
+- ``conv3x3_fwd`` (K4): y = conv(x, w) * scale + shift, optional ReLU.
+- ``conv3x3_wgrad`` (K5, and K6 with ``in_act=False``): dw (3, 3, C, Co) in f32.
+
+x, w (and y, gy) are f32 or bf16, one type per call; the vectors (bias, scale, shift)
+are f32. In bf16 the activated input is rounded to bf16 before the taps, products
+accumulate in f32, the statistics come from the f32 accumulator and y is rounded to
+bf16, as the TPU kernels do.
+
+Differentiable ops, as in tdal: ``conv3x3_act_stats`` (forward K3; backward K4 dgrad
+with flipped, in/out-swapped weights and K5 wgrad), ``conv3x3_bias`` (forward K4;
+backward K4 + K6), ``conv3x3`` and ``conv3x3_affine`` (inference only). tdal's TPU
+tiling, its Pallas/XLA gate and its tiny-output XLA backward are not semantics: on
+the card every call goes through the kernels.
+
+``launches`` counts wrapper calls that launched their kernel; twins do not count.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+launches = {"conv3x3_fwd_stats": 0, "conv3x3_fwd": 0, "conv3x3_wgrad": 0}
+
+_DTYPES = (torch.float32, torch.bfloat16)
+_WGRAD_BLOCKS_PER_SM = 4  # target resident wgrad blocks: a few on each SM
+
+
+# ---------------------------------------------------------------------------
+# Plain twins: what the kernels compute
+# ---------------------------------------------------------------------------
+
+
+def _activate(x, in_scale, in_shift, in_act: bool):
+    """f32 input of the taps: relu(x*s + t) rounded to x's type, or x."""
+    xf = x.float()
+    if in_act:
+        xf = torch.relu(xf * in_scale.float() + in_shift.float()).to(x.dtype).float()
+    return xf
+
+
+def _taps(xf):
+    """The 9 shifted (B, H, W, C) views of xf zero-padded by one pixel, tap order."""
+    _, h, w, _ = xf.shape
+    xp = F.pad(xf, (0, 0, 1, 1, 1, 1))
+    return [xp[:, ky : ky + h, kx : kx + w] for ky in range(3) for kx in range(3)]
+
+
+def _conv_f32(xf, wf):
+    """SAME 3x3 conv as 9 shifted products, f32: (B, H, W, C) x (3, 3, C, Co)."""
+    wt = wf.reshape(9, *wf.shape[2:])
+    out = None
+    for k, tap in enumerate(_taps(xf)):
+        term = tap @ wt[k]
+        out = term if out is None else out + term
+    return out
+
+
+def conv3x3_fwd_stats_plain(x, w, bias, in_scale, in_shift, in_act: bool):
+    """Twin of K3: (y in x's type, stats (2, Co) f32)."""
+    acc = _conv_f32(_activate(x, in_scale, in_shift, in_act), w.float()) + bias.float()
+    stats = torch.stack([acc.sum(dim=(0, 1, 2)), (acc * acc).sum(dim=(0, 1, 2))])
+    return acc.to(x.dtype), stats
+
+
+def conv3x3_fwd_plain(x, w, shift, scale=None, relu: bool = False):
+    """Twin of K4: conv(x, w) * scale + shift, optional ReLU, in x's type."""
+    acc = _conv_f32(x.float(), w.float())
+    if scale is not None:
+        acc = acc * scale.float()
+    acc = acc + shift.float()
+    return (torch.relu(acc) if relu else acc).to(x.dtype)
+
+
+def conv3x3_wgrad_plain(x, gy, in_scale, in_shift, in_act: bool):
+    """Twin of K5/K6: dw[ky, kx] = sum over b, h, w of act(x) shifted by the tap times
+    gy, f32 (3, 3, C, Co)."""
+    g = gy.float().reshape(-1, gy.shape[-1])
+    taps = _taps(_activate(x, in_scale, in_shift, in_act))
+    dw = torch.stack([t.reshape(-1, t.shape[-1]).t() @ g for t in taps])
+    return dw.reshape(3, 3, x.shape[-1], gy.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _require(name, t, shape, dtype, device):
+    if t.device != device:
+        raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _require_input(kind, x):
+    if x.device.type != "cuda":
+        raise ValueError(f"{kind}: expected a CUDA tensor, got device {x.device}")
+    if x.dim() != 4 or min(x.shape) < 1:
+        raise ValueError(f"{kind}: x must be (B, H, W, C) with every dim >= 1, got "
+                         f"{tuple(x.shape)}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{kind}: x must be float32 or bfloat16, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{kind}: expected a contiguous x")
+    return x.shape
+
+
+def conv3x3_fwd_stats(x, w, bias, in_scale, in_shift, in_act: bool):
+    """K3: (y (B, H, W, Co) in x's type, stats (2, Co) f32)."""
+    if x.device.type == "cpu":
+        return conv3x3_fwd_stats_plain(x, w, bias, in_scale, in_shift, in_act)
+    B, H, W, C = _require_input("conv3x3_fwd_stats", x)
+    Co = w.shape[-1]
+    dev = x.device
+    _require("conv3x3_fwd_stats w", w, (3, 3, C, Co), x.dtype, dev)
+    _require("conv3x3_fwd_stats bias", bias, (Co,), torch.float32, dev)
+    _require("conv3x3_fwd_stats in_scale", in_scale, (C,), torch.float32, dev)
+    _require("conv3x3_fwd_stats in_shift", in_shift, (C,), torch.float32, dev)
+
+    from tdal_torch.ops.build import kernels
+
+    lib = kernels()
+    y = torch.empty(B, H, W, Co, device=dev, dtype=x.dtype)
+    partial = torch.empty(B * lib.conv3x3_tiles(H, W), 2, Co, device=dev,
+                          dtype=torch.float32)
+    stats = torch.empty(2, Co, device=dev, dtype=torch.float32)
+    with torch.cuda.device(dev):
+        lib.conv3x3_fwd_stats(x, w, in_scale, in_shift, bool(in_act), bias, y, partial,
+                              stats)
+    launches["conv3x3_fwd_stats"] += 1
+    return y, stats
+
+
+def conv3x3_fwd(x, w, shift, scale=None, relu: bool = False):
+    """K4: conv(x, w) * scale + shift (scale None means 1), optional ReLU; x's type."""
+    if x.device.type == "cpu":
+        return conv3x3_fwd_plain(x, w, shift, scale, relu)
+    B, H, W, C = _require_input("conv3x3_fwd", x)
+    Co = w.shape[-1]
+    dev = x.device
+    _require("conv3x3_fwd w", w, (3, 3, C, Co), x.dtype, dev)
+    _require("conv3x3_fwd shift", shift, (Co,), torch.float32, dev)
+    if scale is not None:
+        _require("conv3x3_fwd scale", scale, (Co,), torch.float32, dev)
+
+    from tdal_torch.ops.build import kernels
+
+    lib = kernels()
+    y = torch.empty(B, H, W, Co, device=dev, dtype=x.dtype)
+    with torch.cuda.device(dev):
+        lib.conv3x3_fwd(x, w, scale, shift, bool(relu), y)
+    launches["conv3x3_fwd"] += 1
+    return y
+
+
+def conv3x3_wgrad(x, gy, in_scale, in_shift, in_act: bool):
+    """K5 (``in_act``) / K6: dw (3, 3, C, Co) f32."""
+    if x.device.type == "cpu":
+        return conv3x3_wgrad_plain(x, gy, in_scale, in_shift, in_act)
+    B, H, W, C = _require_input("conv3x3_wgrad", x)
+    Co = gy.shape[-1]
+    dev = x.device
+    _require("conv3x3_wgrad gy", gy, (B, H, W, Co), x.dtype, dev)
+    _require("conv3x3_wgrad in_scale", in_scale, (C,), torch.float32, dev)
+    _require("conv3x3_wgrad in_shift", in_shift, (C,), torch.float32, dev)
+
+    from tdal_torch.ops.build import kernels
+
+    lib = kernels()
+    n_tiles = B * lib.conv3x3_tiles(H, W)
+    blocks = _WGRAD_BLOCKS_PER_SM * torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = max(1, min(n_tiles, -(-blocks // lib.conv3x3_wgrad_chunks(C, Co))))
+    partial = torch.empty(splits, 3, 3, C, Co, device=dev, dtype=torch.float32)
+    dw = torch.empty(3, 3, C, Co, device=dev, dtype=torch.float32)
+    with torch.cuda.device(dev):
+        lib.conv3x3_wgrad(x, gy, in_scale, in_shift, bool(in_act), splits, partial, dw)
+    launches["conv3x3_wgrad"] += 1
+    return dw
+
+
+# ---------------------------------------------------------------------------
+# Differentiable ops
+# ---------------------------------------------------------------------------
+
+
+def _flip_swap(w):
+    """dgrad weights of a stride-1 SAME conv: spatially flipped, in/out swapped."""
+    return w.flip(0, 1).transpose(2, 3).contiguous()
+
+
+def _vec(v):
+    return v.float().contiguous()
+
+
+class _ConvActStats(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, bias, in_scale, in_shift, in_act):
+        s, t = _vec(in_scale), _vec(in_shift)
+        y, stats = conv3x3_fwd_stats(x, w, _vec(bias), s, t, in_act)
+        ctx.save_for_backward(x, w, s, t, y)
+        ctx.in_act = in_act
+        ctx.dtypes = (bias.dtype, in_scale.dtype, in_shift.dtype)
+        return y, stats
+
+    @staticmethod
+    def backward(ctx, gy, gstats):
+        x, w, s, t, y = ctx.saved_tensors
+        bdt, sdt, tdt = ctx.dtypes
+        # cotangent into the raw conv output: direct + through the two moments
+        gy_tot = (gy.float() + gstats[0] + 2.0 * y.float() * gstats[1]).to(y.dtype)
+        gy_tot = gy_tot.contiguous()
+        db = gy_tot.float().sum(dim=(0, 1, 2))
+        dx = dw = ds = dt = None
+        if ctx.needs_input_grad[1]:
+            dw = conv3x3_wgrad(x, gy_tot, s, t, ctx.in_act).to(w.dtype)
+        if any(ctx.needs_input_grad[i] for i in (0, 3, 4)):
+            dxhat = conv3x3_fwd(gy_tot, _flip_swap(w),
+                                torch.zeros(x.shape[-1], device=x.device))
+            if ctx.in_act:
+                dxh = dxhat.float() * (x.float() * s + t > 0)
+                dx = (dxh * s).to(x.dtype)
+                ds = (dxh * x.float()).sum(dim=(0, 1, 2)).to(sdt)
+                dt = dxh.sum(dim=(0, 1, 2)).to(tdt)
+            else:
+                dx = dxhat.to(x.dtype)
+                ds = torch.zeros(x.shape[-1], device=x.device, dtype=sdt)
+                dt = torch.zeros(x.shape[-1], device=x.device, dtype=tdt)
+        return dx, dw, db.to(bdt), ds, dt, None
+
+
+class _ConvBias(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, bias):
+        ctx.save_for_backward(x, w)
+        ctx.bias_dtype = bias.dtype
+        return conv3x3_fwd(x, w, _vec(bias))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        ones = torch.ones(x.shape[-1], device=x.device)
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = conv3x3_fwd(g, _flip_swap(w), torch.zeros_like(ones))
+        if ctx.needs_input_grad[1]:
+            dw = conv3x3_wgrad(x, g, ones, torch.zeros_like(ones), False).to(w.dtype)
+        db = g.float().sum(dim=(0, 1, 2)).to(ctx.bias_dtype)
+        return dx, dw, db
+
+
+def conv3x3_act_stats(x, w, bias, in_scale, in_shift, in_act: bool):
+    """3x3 s1 SAME conv returning ``(y, stats)``, stats = [sum y, sum y^2] per channel
+    over the image. With ``in_act`` the producer's BatchNorm normalise + ReLU
+    (``in_scale``, ``in_shift``) is applied to the input inside the kernel."""
+    return _ConvActStats.apply(x, w, bias, in_scale, in_shift, bool(in_act))
+
+
+def conv3x3_bias(x, w, bias):
+    """3x3 stride-1 SAME NHWC conv + bias. x (B, H, W, C), w (3, 3, C, Co), bias (Co,)."""
+    return _ConvBias.apply(x, w, bias)
+
+
+def conv3x3(x, w):
+    """Bias-free 3x3 stride-1 SAME conv (the zero bias takes no gradient)."""
+    return conv3x3_bias(x, w, torch.zeros(w.shape[-1], device=x.device))
+
+
+def conv3x3_affine(x, w, scale, shift, relu: bool = True):
+    """Inference-only conv + per-channel affine (+ ReLU) in one pass (a folded eval
+    BatchNorm: scale = gamma * rsqrt(var + eps), shift = beta - mean * scale)."""
+    return conv3x3_fwd(x, w, _vec(shift), _vec(scale), relu)

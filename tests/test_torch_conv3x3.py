@@ -1,0 +1,188 @@
+"""The 3x3 conv ops of the port (plain twins of K3, K4, K5/K6 on the CPU) against
+``tdal.ops.pallas_conv``, whose CPU route is its XLA reference (the route
+``tests/test_pallas_conv.py`` runs).
+
+Inputs come from seeded numpy and go through both packages. Tolerances (f32):
+- forward y and moments: rtol 1e-5, atol 1e-5 x max(1, max |ref|): the same f32
+  products summed in another order (XLA's conv against 9 shifted matmuls);
+- gradients: rtol 1e-5, atol 1e-4 x (max |ref| + 1), the tolerance tdal's own custom
+  VJP test uses against autodiff (``test_pallas_conv.py:145-149``), since the
+  moment cotangent 2 y gss makes the backward's sums large.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from tdal.ops import pallas_conv as pc
+from tdal_torch.ops import conv3x3 as cv
+
+torch.set_num_threads(2)
+
+
+def _inputs(seed, b, h, w, c, co, positive_shift=False):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(b, h, w, c)).astype(np.float32)
+    wt = (rng.normal(size=(3, 3, c, co)) / np.sqrt(9 * c)).astype(np.float32)
+    bias = rng.normal(size=(co,)).astype(np.float32)
+    s = rng.uniform(0.5, 2.0, c).astype(np.float32)
+    t = (np.abs(rng.normal(size=c)) + 0.5 if positive_shift
+         else rng.normal(size=c)).astype(np.float32)
+    # cotangent weights of a loss on y and on the two moments
+    wy = rng.normal(size=(b, h, w, co)).astype(np.float32)
+    ws = rng.normal(size=(2, co)).astype(np.float32) * 0.1
+    return x, wt, bias, s, t, wy, ws
+
+
+def _close(got, want, rtol, atol_scale):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=rtol,
+                               atol=atol_scale * (float(np.abs(want).max()) + 1.0))
+
+
+# (B, H, W, C, Co, positive shifts): tdal's VJP test shape, and a ragged image with
+# positive shifts, where a halo that leaked relu(t) would move every border output
+CASES = [(2, 8, 9, 5, 7, False), (1, 13, 11, 4, 6, True)]
+
+
+@pytest.mark.parametrize("in_act", [False, True])
+@pytest.mark.parametrize("case", CASES, ids=["tdal-vjp-shape", "ragged-halo"])
+def test_conv3x3_act_stats_matches_tdal(case, in_act):
+    *shape, pos = case
+    x, w, b, s, t, wy, ws = _inputs(0, *shape, positive_shift=pos)
+
+    y_ref, st_ref = pc.conv3x3_act_stats(*map(jnp.asarray, (x, w, b, s, t)), in_act)
+    y, st = cv.conv3x3_act_stats(*map(torch.from_numpy, (x, w, b, s, t)), in_act)
+    _close(y.numpy(), y_ref, 1e-5, 1e-5)
+    _close(st.numpy(), st_ref, 1e-5, 1e-5)
+
+    def loss_ref(*a):
+        yy, ss = pc.conv3x3_act_stats(*a, in_act)
+        return (yy * wy).sum() + (ss * ws).sum()
+
+    g_ref = jax.grad(loss_ref, argnums=(0, 1, 2, 3, 4))(*map(jnp.asarray, (x, w, b, s, t)))
+    args = [torch.tensor(a, requires_grad=True) for a in (x, w, b, s, t)]
+    yy, ss = cv.conv3x3_act_stats(*args, in_act)
+    ((yy * torch.from_numpy(wy)).sum() + (ss * torch.from_numpy(ws)).sum()).backward()
+    for name, a, want in zip("x w bias in_scale in_shift".split(), args, g_ref):
+        assert a.grad is not None, name
+        _close(a.grad.numpy(), want, 1e-5, 1e-4)
+
+
+def test_in_act_halo_stays_zero():
+    """Positive shifts on a ragged image: the border outputs see relu(x*s+t) padded
+    with zeros, i.e. exactly conv_bias of the materialised activation."""
+    x, w, b, s, t, _, _ = _inputs(1, 1, 13, 11, 4, 6, positive_shift=True)
+    xt, wt, bt, st_, tt = map(torch.from_numpy, (x, w, b, s, t))
+    y, stats = cv.conv3x3_act_stats(xt, wt, bt, st_, tt, True)
+    act = torch.relu(xt * st_ + tt)
+    y_mat, stats_mat = cv.conv3x3_act_stats(act, wt, bt, torch.ones(4), torch.zeros(4), False)
+    _close(y.numpy(), y_mat.numpy(), 1e-6, 1e-6)
+    _close(stats.numpy(), stats_mat.numpy(), 1e-6, 1e-6)
+    # and against tdal's materialised reference
+    y_ref = pc._xla_conv(jnp.asarray(np.maximum(x * s + t, 0)), jnp.asarray(w)) + b
+    _close(y.numpy(), y_ref, 1e-5, 1e-5)
+
+
+@pytest.mark.parametrize("op", ["conv3x3_bias", "conv3x3"])
+def test_conv3x3_bias_matches_tdal(op):
+    x, w, b, _, _, wy, _ = _inputs(2, 2, 9, 12, 6, 5)
+    if op == "conv3x3":
+        ref = lambda xx, ww, bb: pc.conv3x3(xx, ww)  # noqa: E731
+        port = lambda xx, ww, bb: cv.conv3x3(xx, ww)  # noqa: E731
+    else:
+        ref, port = pc.conv3x3_bias, cv.conv3x3_bias
+    y_ref = ref(*map(jnp.asarray, (x, w, b)))
+    args = [torch.tensor(a, requires_grad=True) for a in (x, w, b)]
+    y = port(*args)
+    _close(y.detach().numpy(), y_ref, 1e-5, 1e-5)
+    g_ref = jax.grad(lambda *a: (ref(*a) * wy).sum(), argnums=(0, 1, 2))(
+        *map(jnp.asarray, (x, w, b)))
+    (y * torch.from_numpy(wy)).sum().backward()
+    n = 3 if op == "conv3x3_bias" else 2  # conv3x3's zero bias takes no gradient
+    for a, want in list(zip(args, g_ref))[:n]:
+        _close(a.grad.numpy(), want, 1e-5, 1e-4)
+
+
+@pytest.mark.parametrize("relu", [False, True])
+def test_conv3x3_affine_matches_tdal(relu):
+    x, w, b, _, _, _, _ = _inputs(3, 2, 10, 7, 5, 8)
+    scale = np.linspace(0.5, 1.5, 8).astype(np.float32)
+    y_ref = pc.conv3x3_affine(*map(jnp.asarray, (x, w, scale, b)), relu=relu)
+    y = cv.conv3x3_affine(*map(torch.from_numpy, (x, w, scale, b)), relu=relu)
+    _close(y.numpy(), y_ref, 1e-5, 1e-5)
+
+
+def test_wgrad_twin_is_the_correlation_of_tdal():
+    """K5/K6's twin against tdal's XLA wgrad (the lhs/rhs-transposed correlation of
+    ``_cas_bwd``) on the activated input."""
+    x, _, _, s, t, _, _ = _inputs(4, 2, 7, 10, 3, 4, positive_shift=True)
+    gy = np.random.default_rng(5).normal(size=(2, 7, 10, 4)).astype(np.float32)
+    for in_act in (False, True):
+        xin = np.maximum(x * s + t, 0) if in_act else x
+        ref = jax.lax.conv_general_dilated(
+            jnp.asarray(xin).transpose(3, 1, 2, 0), jnp.asarray(gy).transpose(1, 2, 0, 3),
+            (1, 1), [(1, 1), (1, 1)], dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        ).transpose(1, 2, 0, 3)
+        got = cv.conv3x3_wgrad(*map(torch.from_numpy, (x, gy, s, t)), in_act)
+        _close(got.numpy(), ref, 1e-5, 1e-5)
+
+
+def test_bf16_twin_rounds_like_the_tpu_kernel():
+    """bf16: the activated input is rounded to bf16 before the taps and the moments
+    come from the f32 accumulator (the TPU kernel), so the twin's y is within one
+    bf16 step (2^-8 relative) of tdal's f32 result on the same bf16-rounded operands,
+    and its moments match the f32 moments of that accumulator to 1e-5."""
+    x, w, b, s, t, _, _ = _inputs(6, 1, 9, 9, 8, 8)
+    xb = torch.from_numpy(x).bfloat16()
+    wb = torch.from_numpy(w).bfloat16()
+    y, st = cv.conv3x3_act_stats(xb, wb, *map(torch.from_numpy, (b, s, t)), True)
+    assert y.dtype == torch.bfloat16
+    act = torch.relu(xb.float() * torch.from_numpy(s) + torch.from_numpy(t))
+    act = act.bfloat16().float().numpy()
+    y_ref = np.asarray(pc._xla_conv(jnp.asarray(act), jnp.asarray(wb.float().numpy()))) + b
+    np.testing.assert_allclose(y.float().numpy(), y_ref, rtol=2.0**-8, atol=1e-5)
+    st_ref = np.stack([y_ref.sum((0, 1, 2)), (y_ref * y_ref).sum((0, 1, 2))])
+    _close(st.numpy(), st_ref, 1e-5, 1e-5)
+
+
+def test_wrappers_take_the_twin_on_the_cpu_only():
+    """CPU tensors run the twins and count no launch; the launch counters move only
+    on the card (tests/test_torch_kernels_gpu.py)."""
+    before = dict(cv.launches)
+    x, w, b, s, t, _, _ = _inputs(7, 1, 5, 6, 3, 4)
+    cv.conv3x3_fwd_stats(*map(torch.from_numpy, (x, w, b, s, t)), True)
+    cv.conv3x3_fwd(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b))
+    cv.conv3x3_wgrad(torch.from_numpy(x), torch.zeros(1, 5, 6, 4), torch.from_numpy(s),
+                     torch.from_numpy(t), False)
+    assert cv.launches == before
+
+
+def test_conv3x3_module_matches_pallas_conv3x3():
+    """``Conv3x3`` (the port of ``PallasConv3x3``) with tdal's flax init converted
+    HWIO -> OIHW: forward and the gradients of input, kernel and bias."""
+    from tdal.models.layers import PallasConv3x3
+    from tdal_torch.models.layers import Conv3x3
+
+    x, _, _, _, _, wy, _ = _inputs(8, 2, 6, 9, 5, 7)
+    ref = PallasConv3x3(7, use_bias=True)
+    params = ref.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
+    params = {"kernel": params["kernel"], "bias": jnp.linspace(-1.0, 1.0, 7)}
+    mod = Conv3x3(5, 7, use_bias=True)
+    mod.load_state_dict({"weight": torch.from_numpy(np.array(params["kernel"])).permute(3, 2, 0, 1),
+                         "bias": torch.from_numpy(np.array(params["bias"]))})
+
+    def loss_ref(p, xx):
+        return (ref.apply({"params": p}, xx) * wy).sum()
+
+    _close(mod(torch.from_numpy(x)).detach().numpy(),
+           ref.apply({"params": params}, jnp.asarray(x)), 1e-5, 1e-5)
+    gp, gx = jax.grad(loss_ref, argnums=(0, 1))(params, jnp.asarray(x))
+    xt = torch.tensor(x, requires_grad=True)
+    (mod(xt) * torch.from_numpy(wy)).sum().backward()
+    _close(xt.grad.numpy(), gx, 1e-5, 1e-4)
+    _close(mod.weight.grad.permute(2, 3, 1, 0).numpy(), gp["kernel"], 1e-5, 1e-4)
+    _close(mod.bias.grad.numpy(), gp["bias"], 1e-5, 1e-4)

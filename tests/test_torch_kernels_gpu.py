@@ -1,10 +1,12 @@
-"""The fused PointNet-seg CUDA kernels (K1, K2) against their plain twins, on the card.
+"""The port's CUDA kernels against their plain twins, on the card: the fused
+PointNet-seg kernels (K1, K2) and the 3x3 conv kernels (K3, K4, K5/K6, with their
+tolerances below), and one detector train step through them.
 
 This file imports no jax, so it also runs where only PyTorch is installed:
 ``python -m pytest --noconftest -q tests/test_torch_kernels_gpu.py``. Without a card
 every case skips.
 
-Tolerances, relative to max(1, max |twin|):
+K1/K2 tolerances, relative to max(1, max |twin|):
 - f32 operands: 1e-5; the kernel and the twin sum the same f32 products in another
   order (TF32 is off for the twin).
 - bf16 operands: 2e-3; both round every operand to bf16, and a summation-order
@@ -99,3 +101,129 @@ def test_wrappers_check_their_inputs(cuda):
     with pytest.raises(ValueError):
         fp.fused_seg_encoder(torch.zeros(2, 3, 8, device=cuda).transpose(1, 2),
                              folded[0], folded[1])
+
+
+# ---------------------------------------------------------------------------
+# The 3x3 conv kernels K3, K4, K5/K6 (tdal_torch/ops/csrc/conv3x3.cu)
+#
+# Tolerances, relative to max(1, max |twin|): 1e-5 for every f32 output and for the
+# bf16 moments and wgrad (f32 accumulators of the same exact products, summed in
+# another order); 8e-3 for bf16 y and dgrad, one bf16 rounding step (2^-7 of the
+# largest value) that a summation-order difference can flip.
+# ---------------------------------------------------------------------------
+
+from tdal_torch.ops import conv3x3 as cv  # noqa: E402
+
+CONV_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (8e-3, 1e-5)}  # (y/dx, stats/dw)
+
+
+def _conv_inputs(cuda, b, h, w, c, co, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, h, w, c, generator=g).to(dtype)
+    wt = (torch.randn(3, 3, c, co, generator=g) / (3 * c ** 0.5)).to(dtype)
+    bias = torch.randn(co, generator=g)
+    s = 0.5 + torch.rand(c, generator=g)
+    t = 0.5 + torch.rand(c, generator=g)  # positive shifts: a halo leak shows
+    gy = torch.randn(b, h, w, co, generator=g).to(dtype)
+    return [a.to(cuda) for a in (x, wt, bias, s, t, gy)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("in_act", [False, True])
+@pytest.mark.parametrize("shape", [(2, 8, 9, 5, 7), (1, 37, 41, 20, 70), (2, 32, 48, 64, 64),
+                                   (1, 17, 20, 33, 130)])
+def test_conv_kernels_match_twins(cuda, shape, in_act, dtype):
+    x, w, b, s, t, gy = _conv_inputs(cuda, *shape, dtype)
+    tol_y, tol_acc = CONV_TOL[dtype]
+    before = dict(cv.launches)
+    y, stats = cv.conv3x3_fwd_stats(x, w, b, s, t, in_act)
+    wt = cv._flip_swap(w)
+    dx = cv.conv3x3_fwd(gy, wt, torch.zeros(shape[3], device=cuda))
+    dw = cv.conv3x3_wgrad(x, gy, s, t, in_act)
+    torch.cuda.synchronize()
+    assert {k: cv.launches[k] - before[k] for k in before} == {
+        "conv3x3_fwd_stats": 1, "conv3x3_fwd": 1, "conv3x3_wgrad": 1}
+    y_t, stats_t = cv.conv3x3_fwd_stats_plain(x, w, b, s, t, in_act)
+    assert y.dtype == dtype and max_rel_err(y.float(), y_t.float()) <= tol_y
+    assert max_rel_err(stats, stats_t) <= tol_acc
+    dx_t = cv.conv3x3_fwd_plain(gy, wt, torch.zeros(shape[3], device=cuda))
+    assert max_rel_err(dx.float(), dx_t.float()) <= tol_y
+    assert max_rel_err(dw, cv.conv3x3_wgrad_plain(x, gy, s, t, in_act)) <= tol_acc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("in_act", [False, True])
+def test_conv_autograd_on_card_matches_the_cpu(cuda, in_act):
+    """conv3x3_act_stats forward and its five gradients (K3, K4, K5 on the card)
+    against the same op on the CPU (the twins), f32."""
+    x, w, b, s, t, gy = _conv_inputs(torch.device("cpu"), 2, 19, 23, 12, 24, torch.float32)
+    gs = torch.randn(2, 24, generator=torch.Generator().manual_seed(3))
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        args = [a.to(dev).requires_grad_() for a in (x, w, b, s, t)]
+        y, st = cv.conv3x3_act_stats(*args, in_act)
+        ((y * gy.to(dev)).sum() + (st * gs.to(dev)).sum() * 1e-3).backward()
+        grads.append([y.detach().cpu(), st.detach().cpu()] + [a.grad.cpu() for a in args])
+    for got, want in zip(*grads):
+        assert max_rel_err(got, want) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_conv_wrappers_check_their_inputs(cuda):
+    x, w, b, s, t, _ = _conv_inputs(cuda, 1, 8, 8, 4, 4, torch.float32)
+    with pytest.raises(TypeError):
+        cv.conv3x3_fwd_stats(x.double(), w, b, s, t, False)
+    with pytest.raises(TypeError):
+        cv.conv3x3_fwd_stats(x, w.bfloat16(), b, s, t, False)
+    with pytest.raises(ValueError):
+        cv.conv3x3_fwd_stats(x.transpose(1, 2), w, b, s, t, False)
+    with pytest.raises(ValueError):
+        cv.conv3x3_fwd(x, w[:, :, :3], b)
+
+
+@pytest.mark.gpu
+def test_detector_train_step_on_card_runs_the_kernels(cuda):
+    """One train step of a narrow PointPillars on the card: every stride-1 3x3 conv
+    of the trunk and the head is one K3 forward and one K4 + one K5 backward, and the
+    loss matches the same step on a CPU copy."""
+    import copy
+
+    import numpy as np
+
+    from tdal_torch.core.voxel import VoxelConfig
+    from tdal_torch.models.detectors import PointPillars
+    from tdal_torch.models.builder import init_detector
+    from tdal_torch.models.layers import FusedConvBN
+    from tdal_torch.models.center_head import center_head_loss
+
+    torch.backends.cudnn.allow_tf32 = False
+    vox = VoxelConfig((-8.0, -8.0, -2.0, 8.0, 8.0, 4.0), (0.25, 0.25, 6.0), 8, 2000)
+    tasks = [dict(num_class=3, class_names=("VEHICLE", "PEDESTRIAN", "CYCLIST"))]
+    model = init_detector(PointPillars(vox, tasks, num_filters=(16, 16),
+                                       rpn_layer_nums=(2, 2, 2), rpn_ds_filters=(32, 64, 64),
+                                       rpn_us_filters=(32, 32, 32)),
+                          torch.Generator().manual_seed(0))
+    sites = sum(isinstance(m, FusedConvBN) for m in model.modules())
+    rng = np.random.default_rng(0)
+    pts = torch.from_numpy(rng.uniform(-8, 8, (2, 3000, 5)).astype(np.float32))
+    hm = torch.zeros(2, 64, 64, 3)
+    hm[:, 10:14, 20:24, 0] = 0.5
+    tg = {"hm": [hm], "anno_box": [torch.randn(2, 4, 8)],
+          "ind": [torch.randint(0, 4096, (2, 4))],
+          "mask": [torch.ones(2, 4, dtype=torch.uint8)],
+          "cat": [torch.zeros(2, 4, dtype=torch.long)]}
+    losses = []
+    for dev in (cuda, torch.device("cpu")):
+        m = copy.deepcopy(model).to(dev).train()
+        before = dict(cv.launches)
+        total, _ = center_head_loss(m(pts.to(dev)),
+                                    {k: [v.to(dev) for v in vs] for k, vs in tg.items()},
+                                    [1.0] * 8)
+        total.backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert {k: cv.launches[k] - before[k] for k in before} == {
+                "conv3x3_fwd_stats": sites, "conv3x3_fwd": sites, "conv3x3_wgrad": sites}
+        losses.append(float(total.detach()))
+    assert np.isfinite(losses[0]) and losses[0] == pytest.approx(losses[1], rel=1e-4)
