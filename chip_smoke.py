@@ -21,19 +21,25 @@ nothing of JAX or of ``tdal``, and exits non-zero on any failure. Phases:
    each kernel must run once per predict batch. One batch of each labeler is then
    held against the same model on the CPU (plain layers, no kernel);
 5. K3 (``conv3x3_fwd_stats``), K4 (``conv3x3_fwd``, as the dgrad with flipped,
-   swapped weights) and K5/K6 (``conv3x3_wgrad``) against their plain twins at the
-   five stride-1 3x3 conv shapes of PointPillars training on the Waymo config (B=4:
-   the RPN stages 468^2x64, 234^2x128, 117^2x256, the head's shared conv 468^2x384->64
-   and its branch conv 468^2x64->320) and a ragged 37x41 image with positive shifts
-   (a halo leak shows there), in f32 and bf16 and with the input affine on and off;
-   kernel, twin and cuDNN times (CUDA events, warm, median of 10) and the bound;
+   swapped weights), K5/K6 (``conv3x3_wgrad``) and K7 (``conv3x3_dgrad_act``, the
+   dgrad of the chained sites) against their plain twins at the five stride-1 3x3 conv
+   shapes of PointPillars training on the Waymo config (B=4: the RPN stages
+   468^2x64, 234^2x128, 117^2x256, the head's shared conv 468^2x384->64 and its branch
+   conv 468^2x64->320; K7 at the four with an input affine) and a ragged 37x41 image
+   with positive shifts (a halo leak shows there), in f32 and bf16 and with the input
+   affine on and off; kernel, twin and cuDNN times (CUDA events, warm, median of 10)
+   and the bound; for K7 also the unfused route (K4, then the mask and sums in torch)
+   and cuDNN's ``conv2d_input`` with the same epilogue. Then K4 as ``conv3x3`` (the
+   function of tdal's benchmark prototype, ``benchmarks/proto_pallas_conv.py``) in
+   bf16 at the stage-1 shape;
 6. PointPillars training end to end: ``configs/waymo/pp/waymo_centerpoint_pp_two_
    pfn_stride1_3x.py`` through the port's ``Config.fromfile``, ``build_detector``
    (fresh init from seed 0) and ``train_detector`` at batch 4 on a synthetic dataset
    (8 frames, 150000 background points each, ``max_points`` 200000): a warm epoch
    (2 steps), then 2 epochs (4 steps) with the launch counters set to 0 just before
-   and read just after. Every loss must be finite and every step must launch each
-   conv kernel 16 times (16 stride-1 3x3 convs; 12 of them take the input affine).
+   and read just after. Every loss must be finite and every step must launch K3 and
+   K5/K6 16 times (16 stride-1 3x3 convs), K7 12 times (the 12 that take their
+   producer's BN + ReLU) and K4 4 times (the other 4).
    Then one train step on the card is held against the same step on a CPU copy
    (plain versions, no kernel): the loss, the BN running statistics, the gradients
    within 8x a noise floor measured on the CPU copy (the change under a permutation
@@ -42,8 +48,17 @@ nothing of JAX or of ``tdal``, and exits non-zero on any failure. Phases:
    float64), and the parameters after the AdamW update. Two controls must fail that
    comparison: the card's step without the 2*y*gss term of the statistics' backward,
    and the step of the same weights with bf16 activations;
-7. one line ``{"kernels": [...]}`` (K1, K2, K3, K4, K5/K6);
-8. the last line ``{"ok": true, "device": {...}}``.
+7. PointPillars inference on the Waymo config's test settings (468^2 BEV, 60000
+   pillars, NMS pre 4096 / post 500 at IoU 0.7, score 0.1) with the weights phase 6
+   trained: ``run_inference`` over a synthetic test split (24 frames of 150000
+   background points) at batch 4, plain and double-flip, with the middle third's
+   synchronised seconds per frame, kept boxes per frame and peak memory; the forward
+   and the decode + NMS of one batch timed apart; one batch held against a CPU copy
+   (decoded maps within ``MAP_TOL``; kept sets equal except candidates on a knife
+   edge, counted and printed); ``evaluate_detector``'s AP/APH on the split;
+8. one line ``{"kernels": [...]}`` (K1, K2, K3, K4, K5/K6, K7, and K4 again as the
+   benchmark prototype's function);
+9. the last line ``{"ok": true, "device": {...}}``.
 
 ``--noise-probe STATES`` builds and then runs only ``noise_probe``: on the card, how
 often phase 6's comparison would fail a step that differs by rounding alone.
@@ -401,7 +416,10 @@ CONV_REPLACES = {
     "conv3x3_fwd_stats": "tdal/ops/pallas_conv.py:147",
     "conv3x3_fwd": "tdal/ops/pallas_conv.py:267",
     "conv3x3_wgrad": "tdal/ops/pallas_conv.py:519",
+    "conv3x3_dgrad_act": "tdal/ops/pallas_conv.py:375",
 }
+PROTO = dict(name="conv3x3", replaces="benchmarks/proto_pallas_conv.py:24",
+             shape="rpn stage 1", dtype=torch.bfloat16)
 # (B, H, W, C, Co): the stride-1 3x3 conv sites of the Waymo PP train step, and a
 # ragged image (with positive input shifts: a halo that leaked relu(t) moves its border)
 CONV_SHAPES = {
@@ -418,6 +436,33 @@ CONV_MAIN = "rpn stage 1 f32 in_act"  # the kernels line's case: a chained RPN l
 # bf16 y and dgrad 8e-3, one bf16 rounding step at the largest value (2^-7), which a
 # summation-order difference can flip
 CONV_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (8e-3, 1e-5)}
+# K7's ds and dt: each channel's error over the sum of its absolute terms (sum |dxh*x|,
+# sum |dxh|), at most the accumulator tolerance: f32 sums of the same terms in another
+# order, and a signed sum can be far smaller than its terms
+
+
+def dgrad_act_scales(gy, wt, x, s, t):
+    """(2, C): sum |dxh * x| and sum |dxh| per channel, from the twin's arithmetic."""
+    from tdal_torch.ops import conv3x3 as cv
+
+    dxh = cv._conv_f32(gy.float(), wt.float()) * (x.float() * s + t > 0)
+    return torch.stack([(dxh * x.float()).abs().sum(dim=(0, 1, 2)),
+                        dxh.abs().sum(dim=(0, 1, 2))])
+
+
+def dgrad_act_unfused(gy, wt, x, s, t):
+    """The in_act dgrad as two passes: K4 (the dgrad, rounded to the working type),
+    then the mask, dx and the sums in torch (the route K7 replaced)."""
+    from tdal_torch.ops import conv3x3 as cv
+
+    dxhat = cv.conv3x3_fwd(gy, wt, torch.zeros(x.shape[-1], device=x.device))
+    return dgrad_act_epilogue(dxhat, x, s, t)
+
+
+def dgrad_act_epilogue(dxhat, x, s, t):
+    dxh = dxhat.float() * (x.float() * s + t > 0)
+    return (dxh * s).to(x.dtype), torch.stack([(dxh * x.float()).sum(dim=(0, 1, 2)),
+                                               dxh.sum(dim=(0, 1, 2))])
 
 
 def conv_work(name, b, h, w, c, co, itemsize):
@@ -429,18 +474,38 @@ def conv_work(name, b, h, w, c, co, itemsize):
         nbytes = b * h * w * (c + co) * itemsize + weights + 4 * (2 * c + co + 2 * co)
     elif name == "conv3x3_fwd":  # as the dgrad: gy (co channels) -> dx (c channels)
         nbytes = b * h * w * (co + c) * itemsize + weights + 4 * c
+    elif name == "conv3x3_dgrad_act":  # gy, x -> dx; s, t -> (2, c) sums
+        nbytes = b * h * w * (co + 2 * c) * itemsize + weights + 4 * (2 * c + 2 * c)
+    elif name == "conv3x3":  # the forward: x -> y
+        nbytes = b * h * w * (c + co) * itemsize + weights
     else:
         nbytes = b * h * w * (c + co) * itemsize + 4 * (9 * c * co + 2 * c)
     return flops, nbytes
 
 
+def conv_reading(name, case, errs, ms, plain_ms, library_ms, work, bf16, **extra):
+    """One kernel case's result: errors, times, bound; logged."""
+    bound_ms, bound_by = bound(work, bf16)
+    r = dict(max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
+             tol=[e[2] for e in errs], ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+             bound_ms=bound_ms, bound_by=bound_by, gflop=work[0] / 1e9,
+             tflops=work[0] / ms / 1e9, **extra)
+    more = "".join(f", {k.replace('_ms', '')} {v:.3f} ms" for k, v in extra.items()
+                   if k.endswith("_ms"))
+    log(f"  {name} {case}: max abs err {r['max_abs_err']:.3e}, rel {r['max_rel_err']:.3e}; "
+        f"kernel {ms:.3f} ms ({r['tflops']:.1f} TFLOP/s), twin {plain_ms:.3f} ms, "
+        f"library {library_ms:.3f} ms{more}, bound {bound_ms:.3f} ms ({bound_by})")
+    return r
+
+
 def phase_conv(device) -> dict:
-    """K3, K4 (dgrad) and K5/K6 against their twins at the production shapes."""
+    """K3, K4 (dgrad), K5/K6 and K7 against their twins at the production shapes, and
+    K4 as the benchmark prototype's ``conv3x3``."""
     from torch.nn.grad import conv2d_input, conv2d_weight
 
     from tdal_torch.ops import conv3x3 as cv
 
-    results = {k: {} for k in CONV_REPLACES}
+    results = {k: {} for k in (*CONV_REPLACES, PROTO["name"])}
     failures = []
     for shape_name, (b, h, w, c, co) in CONV_SHAPES.items():
         for dtype, mode in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
@@ -464,6 +529,7 @@ def phase_conv(device) -> dict:
             }
             library_ms = {k: time_ms(f, reps=10, warm=2) for k, f in library.items()}
             tol_y, tol_acc = CONV_TOL[dtype]
+            bf16 = dtype == torch.bfloat16
             for in_act in (False, True):
                 case = f"{shape_name} {mode}" + (" in_act" if in_act else "")
                 kernel = {
@@ -477,7 +543,7 @@ def phase_conv(device) -> dict:
                     "conv3x3_fwd": lambda: cv.conv3x3_fwd_plain(gy, wf, zero_c),
                     "conv3x3_wgrad": lambda: cv.conv3x3_wgrad_plain(x, gy, s, t, in_act),
                 }
-                for name in CONV_REPLACES:
+                for name in kernel:
                     got, want = kernel[name](), plain[name]()
                     torch.cuda.synchronize()
                     if name == "conv3x3_fwd_stats":
@@ -486,24 +552,56 @@ def phase_conv(device) -> dict:
                         pairs = [(got, want, tol_y if name == "conv3x3_fwd" else tol_acc)]
                     errs = [(*rel_err(a.float(), r.float()), tol) for a, r, tol in pairs]
                     del got, want
-                    ms, plain_ms = time_ms(kernel[name], reps=10, warm=2), \
-                        time_ms(plain[name], reps=5, warm=1)
-                    work = conv_work(name, b, h, w, c, co, x.element_size())
-                    bound_ms, bound_by = bound(work, dtype == torch.bfloat16)
-                    r = dict(max_abs_err=max(e[0] for e in errs),
-                             max_rel_err=max(e[1] for e in errs),
-                             tol=[e[2] for e in errs], ms=ms, plain_ms=plain_ms,
-                             library_ms=library_ms[name], bound_ms=bound_ms,
-                             bound_by=bound_by, gflop=work[0] / 1e9,
-                             tflops=work[0] / ms / 1e9)
-                    results[name][case] = r
-                    log(f"  {name} {case} B={b} {h}x{w} {c}->{co}: max abs err "
-                        f"{r['max_abs_err']:.3e}, rel {r['max_rel_err']:.3e}; kernel "
-                        f"{ms:.3f} ms ({r['tflops']:.1f} TFLOP/s), twin {plain_ms:.3f} ms, "
-                        f"cuDNN {library_ms[name]:.3f} ms, bound {bound_ms:.3f} ms "
-                        f"({bound_by})")
+                    r = results[name][case] = conv_reading(
+                        name, f"{case} B={b} {h}x{w} {c}->{co}", errs,
+                        time_ms(kernel[name], reps=10, warm=2),
+                        time_ms(plain[name], reps=5, warm=1), library_ms[name],
+                        conv_work(name, b, h, w, c, co, x.element_size()), bf16)
                     if not all(e[1] <= e[2] for e in errs):
                         failures.append(f"{name} {case}: {json.dumps(r)}")
+                if in_act and shape_name != "head shared":  # K7: the chained sites' dgrad
+                    name = "conv3x3_dgrad_act"
+                    dx, st = cv.conv3x3_dgrad_act(gy, wf, x, s, t)
+                    dx_t, st_t = cv.conv3x3_dgrad_act_plain(gy, wf, x, s, t)
+                    torch.cuda.synchronize()
+                    scale = dgrad_act_scales(gy, wf, x, s, t)
+                    errs = [(*rel_err(dx.float(), dx_t.float()), tol_y),
+                            (float((st - st_t).abs().max()),
+                             float(((st - st_t).abs() / scale.clamp_min(1e-30)).max()),
+                             tol_acc)]
+                    del dx, st, dx_t, st_t, scale
+                    r = results[name][case] = conv_reading(
+                        name, f"{case} B={b} {h}x{w} {co}->{c}", errs,
+                        time_ms(lambda: cv.conv3x3_dgrad_act(gy, wf, x, s, t), reps=10, warm=2),
+                        time_ms(lambda: cv.conv3x3_dgrad_act_plain(gy, wf, x, s, t), reps=5,
+                                warm=1),
+                        time_ms(lambda: dgrad_act_epilogue(
+                            conv2d_input(x_cl.shape, w_oihw, gy_cl, padding=1).permute(
+                                0, 2, 3, 1), x, s, t), reps=10, warm=2),
+                        conv_work(name, b, h, w, c, co, x.element_size()), bf16,
+                        unfused_ms=time_ms(lambda: dgrad_act_unfused(gy, wf, x, s, t),
+                                           reps=10, warm=2),
+                        library="cuDNN conv2d_input + the torch epilogue")
+                    if not all(e[1] <= e[2] for e in errs):
+                        failures.append(f"{name} {case}: {json.dumps(r)}")
+            if shape_name == PROTO["shape"] and dtype == PROTO["dtype"]:
+                # tdal's benchmark prototype: a bias-free conv, which is K4 with shift 0
+                name, case = PROTO["name"], f"{shape_name} {mode}"
+                zero_co = torch.zeros(co, device=device)
+                with torch.no_grad():
+                    y, y_t = cv.conv3x3(x, wt), cv.conv3x3_fwd_plain(x, wt, zero_co)
+                    torch.cuda.synchronize()
+                    errs = [(*rel_err(y.float(), y_t.float()), tol_y)]
+                    del y, y_t
+                    r = results[name][case] = conv_reading(
+                        name, f"{case} B={b} {h}x{w} {c}->{co}", errs,
+                        time_ms(lambda: cv.conv3x3(x, wt), reps=10, warm=2),
+                        time_ms(lambda: cv.conv3x3_fwd_plain(x, wt, zero_co), reps=5, warm=1),
+                        time_ms(lambda: torch.nn.functional.conv2d(x_cl, w_oihw, padding=1),
+                                reps=10, warm=2),
+                        conv_work(name, b, h, w, c, co, x.element_size()), bf16)
+                if not all(e[1] <= e[2] for e in errs):
+                    failures.append(f"{name} {case}: {json.dumps(r)}")
             del x, wt, gy, wf, x_cl, gy_cl, w_oihw
             torch.cuda.empty_cache()
     if failures:
@@ -527,6 +625,10 @@ PP_SITE_CASES = [("rpn stage 1", False, 1), ("rpn stage 1", True, 3),
                  ("rpn stage 3", False, 1), ("rpn stage 3", True, 4),
                  ("head shared", False, 1), ("head branch", True, 1)]
 PP_SITES = sum(n for _, _, n in PP_SITE_CASES)
+PP_CHAINED = sum(n for _, act, n in PP_SITE_CASES if act)
+# launches per train step: the dgrad is K7 at the chained sites and K4 at the others
+PP_LAUNCHES = {"conv3x3_fwd_stats": PP_SITES, "conv3x3_fwd": PP_SITES - PP_CHAINED,
+               "conv3x3_dgrad_act": PP_CHAINED, "conv3x3_wgrad": PP_SITES}
 GRAD_NOISE_MARGIN = 8  # gradients within 8x the measured noise floor
 # relative change of every weight for the noise floor: about the f32 rounding of a
 # dot product over 9 * C = 576..3456 terms in another order (sqrt(n) * 2^-24)
@@ -813,10 +915,11 @@ def phase_train(device) -> dict:
             raise AssertionError(f"a non-finite loss: {losses}")
         if len(rows) != PP_TIMED:
             raise AssertionError(f"{len(rows)} timed steps logged, expected {PP_TIMED}")
+        log(f"  launches per step: { {k: v / PP_TIMED for k, v in launches.items()} }")
         for name, n in launches.items():
-            if n != PP_TIMED * PP_SITES:
+            if n != PP_TIMED * PP_LAUNCHES[name]:
                 raise AssertionError(f"{name}: {n} launches in {PP_TIMED} steps, expected "
-                                     f"{PP_SITES} per step")
+                                     f"{PP_LAUNCHES[name]} per step")
 
         # the step alone on one batch, synchronised (host data excluded)
         from tdal_torch.pipeline.detector_engine import make_detector_steps
@@ -848,10 +951,239 @@ def phase_train(device) -> dict:
         model_bf16 = build_detector(dict(cfg.model, dtype="bfloat16"), voxel_cfg, seed=0)
         model_bf16.load_state_dict(model.state_dict())
         check = check_step_against_cpu(model, model_bf16, batch, device, cfg, total_steps)
+        del model_bf16
     return dict(launches=launches, losses=losses, step_ms=step_ms, step_s=step_s,
                 timed_s=timed_s, frames_per_s=frames_per_s, checkpoint_s=ckpt_s,
                 frames_per_s_without_checkpoints=frames_per_s_no_ckpt, peak_gib=peak_gib,
-                **check)
+                **check), cfg, model
+
+
+# ---------------------------------------------------------------------------
+# phase 7: PointPillars inference on the Waymo config
+# ---------------------------------------------------------------------------
+
+PP_TEST_DATA = dict(n_scenes=1, n_frames=24, seed=1, n_static=10, n_dynamic=10,
+                    points_per_object=256, n_background=150000)
+INFER_BATCH = 4
+# card against CPU, decoded maps: |card - cpu| <= MAP_TOL * max(1, |cpu|) elementwise,
+# the heading's angle difference times the length r of its (rot0, rot1) vector against
+# MAP_TOL * max(1, r) (atan2 divides the vector's error by r, which is near 0 at some
+# pixels): f32 convolutions summed in another order through 20 layers
+MAP_TOL = 1e-4
+# a candidate kept on one side only must sit on a knife edge: its score within
+# SCORE_EPS (= MAP_TOL, the largest score difference the map check lets through) of the
+# score threshold or of the pre-NMS cut, an IoU within IOU_EPS of the NMS threshold
+# against a box kept on either side, a score within SCORE_EPS of such an overlapping
+# box's (their order may swap), or an overlap above the threshold less IOU_EPS with
+# another candidate that differs for one of these reasons (a cascade)
+SCORE_EPS = MAP_TOL
+IOU_EPS = 1e-3
+
+
+class _Records(logging.Handler):
+    """Keeps the log records whose message starts with ``prefix``."""
+
+    def __init__(self, prefix: str):
+        super().__init__()
+        self.prefix, self.records = prefix, []
+
+    def emit(self, record):
+        if isinstance(record.msg, str) and record.msg.startswith(self.prefix):
+            self.records.append(record)
+
+
+def kept_candidates(boxes, hm, test_cfg):
+    """``post_process_task`` on one frame's decoded candidates: (indices of the kept
+    candidates into the frame's HW, the candidates' scores, the NMS boxes)."""
+    from tdal_torch.models.center_head import post_process_task
+
+    r = post_process_task(boxes[None], hm[None], test_cfg)
+    nms_boxes = boxes[:, [0, 1, 2, 3, 4, 5, boxes.shape[-1] - 1]]
+    return r["index"][0][r["valid"][0]], hm.amax(dim=-1), nms_boxes
+
+
+def explain_kept_difference(card_kept, cpu_kept, scores, nms_boxes, test_cfg):
+    """The candidates kept on one side only, by knife edge (see ``SCORE_EPS``), judged
+    on the CPU side's ``scores`` and ``nms_boxes``: ({reason: count}, [unexplained])."""
+    from tdal_torch.core.iou import boxes_iou_bev
+
+    a, b = set(card_kept.tolist()), set(cpu_kept.tolist())
+    diff = sorted(a ^ b)
+    if not diff:
+        return {}, []
+    thr = float(test_cfg["nms"]["nms_iou_threshold"])
+    edges = [float(test_cfg["score_threshold"])]
+    pre_max = int(test_cfg["nms"]["nms_pre_max_size"])
+    if len(scores) > pre_max:
+        edges.append(float(torch.sort(scores, descending=True).values[pre_max - 1]))
+    kept = sorted(a | b)
+    iou = boxes_iou_bev(nms_boxes[diff], nms_boxes[kept]).cpu()  # (diff, kept)
+    s = scores.cpu()
+    reasons = {}
+    for i, c in enumerate(diff):
+        others = torch.tensor([k != c for k in kept])
+        near = (iou[i] - thr).abs() <= IOU_EPS
+        swap = (iou[i] > thr - IOU_EPS) & ((s[kept] - s[c]).abs() <= SCORE_EPS)
+        if any(abs(float(s[c]) - e) <= SCORE_EPS for e in edges):
+            reasons[c] = "score"
+        elif (near & others).any():
+            reasons[c] = "iou"
+        elif (swap & others).any():
+            reasons[c] = "order"
+    changed = True
+    while changed:  # a knife-edge candidate kept on one side suppresses others there
+        changed = False
+        for i, c in enumerate(diff):
+            if c in reasons:
+                continue
+            if any(k in reasons and iou[i, j] > thr - IOU_EPS for j, k in enumerate(kept)):
+                reasons[c], changed = "cascade", True
+    counts = {}
+    for r in reasons.values():
+        counts[r] = counts.get(r, 0) + 1
+    return counts, [c for c in diff if c not in reasons]
+
+
+def check_infer_against_cpu(model, points, test_cfg) -> dict:
+    """One batch through ``model`` on the card and through a CPU copy (plain layers):
+    the decoded maps within ``MAP_TOL``, and per frame the kept sets equal but for
+    knife-edge candidates, which are counted."""
+    from tdal_torch.models.center_head import decode_preds
+
+    cpu_model = copy.deepcopy(model).cpu().eval()
+    model.eval()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        maps_cpu = cpu_model(points.cpu())
+        cpu_s = time.perf_counter() - t0
+        maps_card = model(points)
+        decoded = [(decode_preds(mc, test_cfg), decode_preds(mp, test_cfg))
+                   for mc, mp in zip(maps_card, maps_cpu)]
+    worst = {}
+    counts, unexplained, n_diff, n_kept = {}, [], 0, 0
+    for task, ((bc, hc), (bp, hp)) in enumerate(decoded):
+        bc, hc = bc.cpu(), hc.cpu()
+        errs = {"hm": (hc - hp).abs() / hp.abs().clamp_min(1)}
+        cols = ["x", "y", "z", "l", "w", "h", "vx", "vy"][: bc.shape[-1] - 1]
+        for i, name in enumerate(cols):
+            errs[name] = (bc[..., i] - bp[..., i]).abs() / bp[..., i].abs().clamp_min(1)
+        r = maps_cpu[task]["rot"].reshape(bp.shape[0], -1, 2).norm(dim=-1)
+        angle = torch.remainder(bc[..., -1] - bp[..., -1] + math.pi, 2 * math.pi) - math.pi
+        errs["heading x r"] = angle.abs() * r / r.clamp_min(1)
+        for name, e in errs.items():
+            worst[name] = max(worst.get(name, 0.0), float(e.max()))
+        worst["heading (rad)"] = max(worst.get("heading (rad)", 0.0), float(angle.abs().max()))
+        for f in range(bc.shape[0]):
+            kc, _, _ = kept_candidates(bc[f], hc[f], test_cfg)
+            kp, sp, boxes_p = kept_candidates(bp[f], hp[f], test_cfg)
+            c, u = explain_kept_difference(kc, kp, sp, boxes_p, test_cfg)
+            n_kept += len(kp)
+            n_diff += len(set(kc.tolist()) ^ set(kp.tolist()))
+            for k, v in c.items():
+                counts[k] = counts.get(k, 0) + v
+            unexplained += [(task, f, int(i)) for i in u]
+    out = dict(map_rel_err=worst, kept_cpu=n_kept, differing=n_diff, knife_edge=counts,
+               unexplained=len(unexplained), cpu_forward_s=cpu_s)
+    log(f"  one batch on the card against a CPU copy: decoded maps' errors (tol {MAP_TOL:.0e}) "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + f"; {n_kept} boxes kept on the CPU, {n_diff} kept on one side only: knife edges "
+        f"{counts}, unexplained {len(unexplained)}; CPU forward {cpu_s:.1f} s")
+    failures = [k for k, v in worst.items() if not v <= MAP_TOL and k != "heading (rad)"]
+    if failures or unexplained:
+        raise AssertionError(f"inference on the card differs from the CPU's: maps {failures}, "
+                             f"kept sets {unexplained[:10]}")
+    return out
+
+
+def phase_infer(device, cfg, trained) -> dict:
+    """``run_inference`` (plain and double-flip) and ``evaluate_detector`` at the Waymo PP
+    config's test settings with phase 6's weights, on a synthetic test split."""
+    from tdal_torch.data.detection import DetectionDataset
+    from tdal_torch.data.synthetic import make_synthetic_dataset
+    from tdal_torch.models.builder import (
+        build_assigner, build_detector, build_test_cfg, build_voxel_config,
+    )
+    from tdal_torch.models.center_head import predict
+    from tdal_torch.ops import conv3x3 as cv
+    from tdal_torch.pipeline.detector_run import evaluate_detector, run_inference
+    from tdal_torch.runtime.train_state import TrainState
+
+    logger = logging.getLogger("chip_smoke")
+    timing = _Records("Total time per frame")
+    logger.addHandler(timing)
+    voxel_cfg = build_voxel_config(cfg.voxel_generator, train=False)
+    model = build_detector(cfg.model, voxel_cfg, device=device, seed=0)
+    model.load_state_dict(trained.state_dict())
+    test_cfg = build_test_cfg(cfg.test_cfg, model, voxel_cfg)
+    state = TrainState(model, None)
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            infos, _ = make_synthetic_dataset(Path(tmp) / "test", **PP_TEST_DATA)
+            ds = DetectionDataset(infos, cfg.class_names, build_assigner(cfg.assigner, model),
+                                  voxel_cfg, mode="test",
+                                  max_points=cfg.data["val"]["max_points"])
+            log(f"  {len(ds)} synthetic test frames written in {time.perf_counter() - t0:.1f} "
+                f"s; max voxels {voxel_cfg.max_voxels}, NMS {test_cfg['nms']}, score "
+                f"threshold {test_cfg['score_threshold']}")
+            for k in cv.launches:
+                cv.launches[k] = 0
+            for double_flip in (False, True):
+                tag = "double-flip" if double_flip else "plain"
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                dets = run_inference(state, ds, test_cfg, INFER_BATCH, logger,
+                                     speed_test=True, double_flip=double_flip)
+                total = time.perf_counter() - t0
+                s_per_frame = timing.records.pop().args[0]
+                kept = [len(d["scores"]) for d in dets.values()]
+                if len(dets) != len(ds) or not all(
+                        np.isfinite(d["box3d_lidar"]).all() and d["box3d_lidar"].shape[1] == 7
+                        for d in dets.values()):
+                    raise AssertionError(f"{tag}: detections missing, not finite or not 7 wide")
+                out[tag] = dict(frames_per_s=1.0 / s_per_frame, s_per_frame=s_per_frame,
+                                total_s=total, kept_per_frame=float(np.mean(kept)),
+                                kept_min=min(kept), kept_max=max(kept),
+                                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+                log(f"  run_inference {tag}: {out[tag]['frames_per_s']:.3f} frames/s (middle "
+                    f"third, synchronised; {s_per_frame:.6f} s per frame); {len(ds)} frames in "
+                    f"{total:.2f} s with the host data; kept boxes per frame "
+                    f"{out[tag]['kept_per_frame']:.1f} ({min(kept)}-{max(kept)}); peak memory "
+                    f"{out[tag]['peak_gib']:.2f} GiB")
+            out["launches"] = dict(cv.launches)
+            log(f"  conv kernel launches in inference: {out['launches']} (eval folds each BN "
+                f"into a cuDNN conv, as tdal's eval runs XLA convs)")
+
+            # one batch: the forward and the decode + NMS timed apart
+            points = torch.as_tensor(np.stack([ds[i]["points"] for i in range(INFER_BATCH)]),
+                                     device=device)
+            fwd, post = [], []
+            with torch.no_grad():
+                for _ in range(4):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    maps = model(points)
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    predict(maps, test_cfg, model.num_classes)
+                    torch.cuda.synchronize()
+                    fwd.append(t1 - t0)
+                    post.append(time.perf_counter() - t1)
+            out["forward_ms_per_batch"] = 1e3 * statistics.median(fwd[1:])
+            out["nms_ms_per_frame"] = 1e3 * statistics.median(post[1:]) / INFER_BATCH
+            log(f"  one batch of {INFER_BATCH}: forward {out['forward_ms_per_batch']:.1f} ms, "
+                f"decode + NMS {out['nms_ms_per_frame']:.1f} ms per frame (medians of 3)")
+            out["cpu_check"] = check_infer_against_cpu(model, points, test_cfg)
+
+            t0 = time.perf_counter()
+            out["ap"] = evaluate_detector(state, ds, test_cfg, INFER_BATCH, logger)
+            log(f"  evaluate_detector on the {len(ds)} frames ({time.perf_counter() - t0:.1f} "
+                f"s): " + ", ".join(f"{k} {v:.4f}" for k, v in out["ap"].items()))
+    finally:
+        logger.removeHandler(timing)
+    return out
 
 
 # a rounding-level relative change of every weight: the probe's stand-in for the
@@ -968,7 +1300,10 @@ def main() -> int:
     log(f"  launches in phase 5 (checks and timing, not counted below): {dict(cv.launches)}")
 
     log("phase 6 PointPillars training on the Waymo config")
-    train = phase_train(device)
+    train, pp_cfg, pp_model = phase_train(device)
+
+    log("phase 7 PointPillars inference on the Waymo config")
+    infer = phase_infer(device, pp_cfg, pp_model)
 
     entries = []
     for name, by_case in kres.items():
@@ -981,24 +1316,38 @@ def main() -> int:
             shape="static B=64 N=4096 Cin=3, f32 operands", cases=by_case,
         ))
     for name, by_case in cres.items():
-        main_case = by_case[CONV_MAIN]
+        proto = name == PROTO["name"]
+        case = f"{PROTO['shape']} bf16" if proto else CONV_MAIN
+        main_case = by_case[case]
+        extra = {
+            "conv3x3_wgrad": {"also_replaces": "tdal/ops/pallas_conv.py:622 (K6: in_act off)"},
+            "conv3x3_dgrad_act": {"unfused_ms": main_case.get("unfused_ms"),
+                                  "library": main_case.get("library")},
+            # the prototype has no caller: its function is K4's, counted on the path
+            PROTO["name"]: {"same_kernel_as": "conv3x3_fwd"},
+        }.get(name, {})
         entries.append(dict(
-            name=name, route="cuda", source=CONV_SOURCE, replaces=CONV_REPLACES[name],
-            launches=train["launches"][name], max_abs_err=main_case["max_abs_err"],
-            ms=main_case["ms"], plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
+            name=name, route="cuda", source=CONV_SOURCE,
+            replaces=PROTO["replaces"] if proto else CONV_REPLACES[name],
+            launches=train["launches"]["conv3x3_fwd" if proto else name],
+            max_abs_err=main_case["max_abs_err"], ms=main_case["ms"],
+            plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
             bound_by=main_case["bound_by"], library_ms=main_case["library_ms"],
-            shape=f"{CONV_MAIN}: B=4 468x468 64->64",
-            **({"also_replaces": "tdal/ops/pallas_conv.py:622 (K6: in_act off)"}
-               if name == "conv3x3_wgrad" else {}),
+            shape=f"{case}: B=4 468x468 64->64", **extra,
         ))
     # derived, not traced: phase 5's f32 kernel times at each conv site of the step
-    kernel_ms = sum(n * sum(cres[name][f"{shape} f32" + (" in_act" if act else "")]["ms"]
-                            for name in cres)
-                    for shape, act, n in PP_SITE_CASES)
-    log(f"  derived: the {PP_SITES} conv sites' K3 + K4 + K5 take {kernel_ms:.1f} ms of the "
-        f"{train['step_ms']:.1f} ms step ({100 * kernel_ms / train['step_ms']:.0f}%)")
+    kernel_ms = 0.0
+    for shape, act, n in PP_SITE_CASES:
+        case = f"{shape} f32" + (" in_act" if act else "")
+        dgrad = "conv3x3_dgrad_act" if act else "conv3x3_fwd"
+        kernel_ms += n * sum(cres[k][case]["ms"] for k in ("conv3x3_fwd_stats", dgrad,
+                                                            "conv3x3_wgrad"))
+    log(f"  derived: the {PP_SITES} conv sites' K3 + dgrad (K7 or K4) + K5 take "
+        f"{kernel_ms:.1f} ms of the {train['step_ms']:.1f} ms step "
+        f"({100 * kernel_ms / train['step_ms']:.0f}%)")
     train_summary = {k: v for k, v in train.items() if k != "launches"}
     log(f"  training summary: {json.dumps(train_summary)}")
+    log(f"  inference summary: {json.dumps(infer)}")
     log(f"card: {kind} | {smi}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -92,6 +92,16 @@ def boxes_overlap_bev(boxes_a, boxes_b) -> torch.Tensor:
     return _overlap_bev(boxes_a[..., :, None, sel], boxes_b[..., None, :, sel])
 
 
+def boxes_iou_bev(boxes_a, boxes_b) -> torch.Tensor:
+    """Pairwise rotated BEV IoU: (..., N, 7) x (..., M, 7) -> (..., N, M).
+
+    Parity: tdal.core.iou.boxes_iou_bev."""
+    overlap = boxes_overlap_bev(boxes_a, boxes_b)
+    area_a = (boxes_a[..., 3] * boxes_a[..., 4])[..., :, None]
+    area_b = (boxes_b[..., 3] * boxes_b[..., 4])[..., None, :]
+    return overlap / (area_a + area_b - overlap).clamp_min(_EPS)
+
+
 def boxes_iou_3d(boxes_a, boxes_b) -> torch.Tensor:
     """Pairwise 3D IoU, batched: (..., N, 7) x (..., M, 7) -> (..., N, M).
 

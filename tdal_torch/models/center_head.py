@@ -1,8 +1,8 @@
 """CenterPoint detection head and its CenterNet losses, NHWC.
 
 Port of ``tdal/models/center_head.py`` (``SepHead`` :28-223, ``CenterHead`` :226-282,
-``_gather_feat``, ``fast_focal_loss``, ``reg_loss``, ``center_head_loss`` :290-370).
-Decode, NMS and predict arrive with the inference slice.
+``_gather_feat``, ``fast_focal_loss``, ``reg_loss``, ``center_head_loss`` :290-370,
+``decode_preds``, ``post_process_task``, ``predict`` :378-473).
 
 ``SepHead`` fuses its branches as tdal does: the first conv is one dense
 ``FusedConvBN`` over every branch (``branch_convbn0``; in training its input side
@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tdal_torch.core.nms import circle_nms, rotated_nms
 from tdal_torch.models.layers import FusedConvBN, conv_nhwc
 
 _HEAD_BN = dict(momentum=0.1, eps=1e-5)
@@ -153,3 +154,85 @@ def center_head_loss(preds_dicts, targets, code_weights, weight: float = 2.0,
         logs[f"num_positive_task{task_id}"] = targets["mask"][task_id].sum()
     logs["loss"] = total
     return total, logs
+
+
+# ---------------------------------------------------------------------------
+# Decode + post-process
+# ---------------------------------------------------------------------------
+
+
+def decode_preds(preds, test_cfg, activated: bool = False):
+    """Per-task NHWC maps -> (boxes (B, HW, 7|9), hm (B, HW, C)): sigmoid of hm, exp of
+    dim clipped to +-10, heading atan2(rot[..., 0], rot[..., 1]), grid offsets to world
+    coordinates. Columns [x, y, z, l, w, h, (vx, vy,) heading]. ``activated``: hm and
+    dim already hold probabilities and sizes (the double-flip merge averages after
+    activation)."""
+    hm = preds["hm"] if activated else torch.sigmoid(preds["hm"])
+    b, H, W, num_cls = hm.shape
+    dim = preds["dim"] if activated else torch.exp(preds["dim"].clamp(-10.0, 10.0))
+    rot = torch.atan2(preds["rot"][..., 0:1], preds["rot"][..., 1:2])
+    reg = preds["reg"]
+    ys, xs = torch.meshgrid(torch.arange(H, device=reg.device, dtype=reg.dtype),
+                            torch.arange(W, device=reg.device, dtype=reg.dtype),
+                            indexing="ij")
+    xs = xs[None, ..., None] + reg[..., 0:1]
+    ys = ys[None, ..., None] + reg[..., 1:2]
+    xs = xs * test_cfg["out_size_factor"] * test_cfg["voxel_size"][0] + test_cfg["pc_range"][0]
+    ys = ys * test_cfg["out_size_factor"] * test_cfg["voxel_size"][1] + test_cfg["pc_range"][1]
+    parts = [xs, ys, preds["height"], dim]
+    if "vel" in preds:
+        parts.append(preds["vel"])
+    parts.append(rot)
+    boxes = torch.cat(parts, dim=-1).reshape(b, H * W, -1)
+    return boxes, hm.reshape(b, H * W, num_cls)
+
+
+def post_process_task(batch_box_preds, batch_hm, test_cfg, task_id: int = 0):
+    """Score threshold, the post-center-range mask and NMS per frame (rotated, or
+    circle with ``test_cfg['circular_nms']``). Returns (B, post_max) tensors
+    ``box3d_lidar``, ``scores`` (-inf in invalid slots), ``label_preds``, ``valid``, and
+    ``index``, the kept candidates' positions in the HW axis. The rotated NMS reads the
+    heading from the boxes' last column."""
+    nms = test_cfg["nms"]
+    pre_max, post_max = int(nms["nms_pre_max_size"]), int(nms["nms_post_max_size"])
+    iou_thr = float(nms["nms_iou_threshold"])
+    pcr = torch.tensor(test_cfg["post_center_limit_range"], dtype=batch_box_preds.dtype,
+                       device=batch_box_preds.device)
+    scores, labels = batch_hm.amax(dim=-1), batch_hm.argmax(dim=-1)
+    centers = batch_box_preds[..., :3]
+    dist_ok = (centers >= pcr[:3]).all(-1) & (centers <= pcr[3:]).all(-1)
+    ok = (scores > float(test_cfg["score_threshold"])) & dist_ok
+    masked = torch.where(ok, scores, torch.full_like(scores, -torch.inf))
+    cols = [0, 1, 2, 3, 4, 5, batch_box_preds.shape[-1] - 1]
+    outs = []
+    for boxes, sc, lb in zip(batch_box_preds, masked, labels):
+        if test_cfg.get("circular_nms", False):
+            r = test_cfg["min_radius"]
+            r = r[task_id] if isinstance(r, (list, tuple)) else r
+            idx, valid = circle_nms(boxes[:, :2], sc, float(r), post_max)
+        else:
+            idx, valid = rotated_nms(boxes[:, cols], sc, iou_thr, pre_max, post_max)
+        outs.append((boxes[idx], sc[idx], lb[idx], valid, idx))
+    sel_boxes, sel_scores, sel_labels, valid, index = (torch.stack([o[j] for o in outs])
+                                                       for j in range(5))
+    return {
+        "box3d_lidar": sel_boxes,
+        "scores": torch.where(valid, sel_scores, torch.full_like(sel_scores, -torch.inf)),
+        "label_preds": sel_labels,
+        "valid": valid,
+        "index": index,
+    }
+
+
+def predict(preds_dicts, test_cfg, num_classes: Sequence[int], activated: bool = False):
+    """Decode and NMS per task, labels offset by the classes of the earlier tasks, the
+    tasks' results concatenated along the box axis."""
+    outs, flag = [], 0
+    for task_id, preds in enumerate(preds_dicts):
+        boxes, hm = decode_preds(preds, test_cfg, activated=activated)
+        r = post_process_task(boxes, hm, test_cfg, task_id)
+        r["label_preds"] = r["label_preds"] + flag
+        flag += num_classes[task_id]
+        outs.append(r)
+    return {k: torch.cat([o[k] for o in outs], dim=1)
+            for k in ("box3d_lidar", "scores", "label_preds", "valid")}

@@ -6,9 +6,9 @@ plain C interface, ``build/tdal_torch_kernels/libtdal_torch_kernels.so`` (listed
 ``.gitignore``), the first time a process launches a kernel; it loads it with
 ``ctypes``. The sources include no PyTorch header, so the build takes seconds. The
 returned object has one launcher per kernel taking tensors (``seg_encoder``,
-``seg_decoder``, ``conv3x3_fwd_stats``, ``conv3x3_fwd``, ``conv3x3_wgrad``) and a few
-geometry queries; each launcher runs on PyTorch's current stream and checks the launch
-with ``tdal_last_error()`` right after it. ``build_log`` keeps ``nvcc``'s
+``seg_decoder``, ``conv3x3_fwd_stats``, ``conv3x3_fwd``, ``conv3x3_wgrad``,
+``conv3x3_dgrad_act``) and a few geometry queries; each launcher runs on PyTorch's
+current stream and checks the launch with ``tdal_last_error()`` right after it. ``build_log`` keeps ``nvcc``'s
 ``-Xptxas -v`` report (registers, shared memory, spills per kernel). Importing this
 module builds nothing.
 """
@@ -86,6 +86,8 @@ class _Kernels:
              None),
             ("tdal_conv3x3_fwd", [P, P, I, I, I, I, I, P, P, I, P, I, P], None),
             ("tdal_conv3x3_wgrad", [P, P, I, I, I, I, I, P, P, I, I, P, P, I, P], None),
+            ("tdal_conv3x3_dgrad_act", [P, P, P, I, I, I, I, I, P, P, P, P, P, I, P],
+             None),
         ):
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = args, res
@@ -177,3 +179,12 @@ class _Kernels:
             self._bf16(x), self._stream(x),
         )
         self._check("conv3x3_wgrad")
+
+    def conv3x3_dgrad_act(self, gy, wt, x, s, t, dx, partial, stats):
+        B, H, W, Co = gy.shape
+        self._lib.tdal_conv3x3_dgrad_act(
+            gy.data_ptr(), wt.data_ptr(), x.data_ptr(), B, H, W, Co, x.shape[-1],
+            s.data_ptr(), t.data_ptr(), dx.data_ptr(), partial.data_ptr(),
+            stats.data_ptr(), self._bf16(gy), self._stream(gy),
+        )
+        self._check("conv3x3_dgrad_act")

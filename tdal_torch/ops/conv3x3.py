@@ -1,4 +1,4 @@
-"""3x3 stride-1 SAME NHWC convolution kernels (K3, K4, K5/K6), their plain-PyTorch
+"""3x3 stride-1 SAME NHWC convolution kernels (K3, K4, K5/K6, K7), their plain-PyTorch
 twins, and the differentiable ops built on them.
 
 Port of ``tdal/ops/pallas_conv.py``. The CUDA source is
@@ -13,14 +13,18 @@ tensors it launches the kernel or raises):
   outside the image stays zero) and x otherwise.
 - ``conv3x3_fwd`` (K4): y = conv(x, w) * scale + shift, optional ReLU.
 - ``conv3x3_wgrad`` (K5, and K6 with ``in_act=False``): dw (3, 3, C, Co) in f32.
+- ``conv3x3_dgrad_act`` (K7): the dgrad of the in_act chain in one pass. With acc =
+  conv(gy, wt) in f32 and dxh = acc * [x*s + t > 0]: dx = dxh * s in x's type (rounded
+  once) and stats = [sum dxh * x, sum dxh] per channel over the image.
 
 x, w (and y, gy) are f32 or bf16, one type per call; the vectors (bias, scale, shift)
 are f32. In bf16 the activated input is rounded to bf16 before the taps, products
 accumulate in f32, the statistics come from the f32 accumulator and y is rounded to
 bf16, as the TPU kernels do.
 
-Differentiable ops, as in tdal: ``conv3x3_act_stats`` (forward K3; backward K4 dgrad
-with flipped, in/out-swapped weights and K5 wgrad), ``conv3x3_bias`` (forward K4;
+Differentiable ops, as in tdal: ``conv3x3_act_stats`` (forward K3; backward K5 wgrad
+and, with flipped, in/out-swapped weights, the dgrad: K7 with ``in_act``, else K4),
+``conv3x3_bias`` (forward K4;
 backward K4 + K6), ``conv3x3`` and ``conv3x3_affine`` (inference only). tdal's TPU
 tiling, its Pallas/XLA gate and its tiny-output XLA backward are not semantics: on
 the card every call goes through the kernels.
@@ -33,7 +37,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-launches = {"conv3x3_fwd_stats": 0, "conv3x3_fwd": 0, "conv3x3_wgrad": 0}
+launches = {"conv3x3_fwd_stats": 0, "conv3x3_fwd": 0, "conv3x3_wgrad": 0,
+            "conv3x3_dgrad_act": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _WGRAD_BLOCKS_PER_SM = 4  # target resident wgrad blocks: a few on each SM
@@ -92,6 +97,17 @@ def conv3x3_wgrad_plain(x, gy, in_scale, in_shift, in_act: bool):
     taps = _taps(_activate(x, in_scale, in_shift, in_act))
     dw = torch.stack([t.reshape(-1, t.shape[-1]).t() @ g for t in taps])
     return dw.reshape(3, 3, x.shape[-1], gy.shape[-1])
+
+
+def conv3x3_dgrad_act_plain(gy, wt, x, s, t):
+    """Twin of K7: (dx in x's type, stats (2, C) f32 = [sum dxh * x, sum dxh]).
+
+    In bf16 this rounds once, at dx, as tdal's Pallas K7 does (tdal's XLA route rounds
+    dxhat to bf16 before the mask as well)."""
+    xf = x.float()
+    dxh = _conv_f32(gy.float(), wt.float()) * (xf * s.float() + t.float() > 0)
+    stats = torch.stack([(dxh * xf).sum(dim=(0, 1, 2)), dxh.sum(dim=(0, 1, 2))])
+    return (dxh * s.float()).to(x.dtype), stats
 
 
 # ---------------------------------------------------------------------------
@@ -196,6 +212,33 @@ def conv3x3_wgrad(x, gy, in_scale, in_shift, in_act: bool):
     return dw
 
 
+def conv3x3_dgrad_act(gy, wt, x, s, t):
+    """K7: gy (B, H, W, Co), wt (3, 3, Co, C) flipped and in/out-swapped, x (B, H, W, C)
+    the forward's input, s and t (C,) f32 -> (dx (B, H, W, C) in x's type, stats
+    (2, C) f32)."""
+    if gy.device.type == "cpu":
+        return conv3x3_dgrad_act_plain(gy, wt, x, s, t)
+    B, H, W, Co = _require_input("conv3x3_dgrad_act", gy)
+    C = wt.shape[-1]
+    dev = gy.device
+    _require("conv3x3_dgrad_act wt", wt, (3, 3, Co, C), gy.dtype, dev)
+    _require("conv3x3_dgrad_act x", x, (B, H, W, C), gy.dtype, dev)
+    _require("conv3x3_dgrad_act s", s, (C,), torch.float32, dev)
+    _require("conv3x3_dgrad_act t", t, (C,), torch.float32, dev)
+
+    from tdal_torch.ops.build import kernels
+
+    lib = kernels()
+    dx = torch.empty(B, H, W, C, device=dev, dtype=gy.dtype)
+    partial = torch.empty(B * lib.conv3x3_tiles(H, W), 2, C, device=dev,
+                          dtype=torch.float32)
+    stats = torch.empty(2, C, device=dev, dtype=torch.float32)
+    with torch.cuda.device(dev):
+        lib.conv3x3_dgrad_act(gy, wt, x, s, t, dx, partial, stats)
+    launches["conv3x3_dgrad_act"] += 1
+    return dx, stats
+
+
 # ---------------------------------------------------------------------------
 # Differentiable ops
 # ---------------------------------------------------------------------------
@@ -232,15 +275,12 @@ class _ConvActStats(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             dw = conv3x3_wgrad(x, gy_tot, s, t, ctx.in_act).to(w.dtype)
         if any(ctx.needs_input_grad[i] for i in (0, 3, 4)):
-            dxhat = conv3x3_fwd(gy_tot, _flip_swap(w),
-                                torch.zeros(x.shape[-1], device=x.device))
             if ctx.in_act:
-                dxh = dxhat.float() * (x.float() * s + t > 0)
-                dx = (dxh * s).to(x.dtype)
-                ds = (dxh * x.float()).sum(dim=(0, 1, 2)).to(sdt)
-                dt = dxh.sum(dim=(0, 1, 2)).to(tdt)
+                dx, dst = conv3x3_dgrad_act(gy_tot, _flip_swap(w), x, s, t)
+                ds, dt = dst[0].to(sdt), dst[1].to(tdt)
             else:
-                dx = dxhat.to(x.dtype)
+                dx = conv3x3_fwd(gy_tot, _flip_swap(w),
+                                 torch.zeros(x.shape[-1], device=x.device)).to(x.dtype)
                 ds = torch.zeros(x.shape[-1], device=x.device, dtype=sdt)
                 dt = torch.zeros(x.shape[-1], device=x.device, dtype=tdt)
         return dx, dw, db.to(bdt), ds, dt, None

@@ -13,6 +13,12 @@
 //       with K3's input affine, ReLU and halo mask.
 //   K6  _wgrad_kernel (:622) via _pallas_wgrad (:655): K5 with in_act off, the same
 //       CUDA kernel instantiated without the input affine.
+//   K7  _dgrad_act_kernel (:375) via _pallas_dgrad_act (:438)
+//       the dgrad of the in_act chain: acc = conv(gy, w flipped and in/out-swapped),
+//       dxh = acc * [x*s + t > 0], dx = dxh * s rounded once to x's type, and per
+//       channel [sum dxh*x, sum dxh] over the valid image. x is the forward's
+//       unpadded saved input. It is K4's conv with another epilogue, so the tiling,
+//       the halo and the fixed-order statistics are K3's.
 //
 // What bounds them on an H100: operations. At the detector's shapes (B=4, 468x468,
 // 64..384 channels) a conv does 2*9*C*Co FLOP per pixel against 4*(C+Co) bytes, so
@@ -21,16 +27,22 @@
 // which is later work).
 //
 // Design (right and simple first):
-// - Forward (K3, K4): one block of 256 threads per (8x16 output tile, image, 64 output
+// - Conv (K3, K4, K7): one block of 256 threads per (8x16 output tile, image, 64 output
 //   channels). The halo'd 10x18 input tile and the 9 taps' weights are staged in
 //   shared memory one 16-channel slice at a time, the input affine + ReLU + halo mask
 //   applied once at load. Each thread owns 8 pixels of one row x 4 output channels:
 //   per (channel, kernel row) it loads 10 input values once and reuses them for the 3
 //   kernel columns, so 96 FMAs cost 13 shared-memory loads.
-// - Statistics (K3): each block reduces its tile's valid pixels per channel in a fixed
-//   order and writes one partial; a second kernel sums the partials per channel in
-//   double, in a fixed order. Hopper runs blocks in no order, so the TPU's revisited
-//   (2, Co) output becomes this deterministic second pass; no float atomics.
+// - Statistics (K3's [sum y, sum y^2], K7's [sum dxh*x, sum dxh]): each block reduces
+//   its tile's valid pixels per channel in a fixed order and writes one partial; a
+//   second kernel sums the partials per channel in double, in a fixed order. Hopper
+//   runs blocks in no order, so the TPU's revisited (2, Co) output becomes this
+//   deterministic second pass; no float atomics, the same result every run.
+// - K7's epilogue reads x, s and t for its own output pixels only (no halo): the mask
+//   x*s + t is taken as two rounded f32 operations (no fused multiply-add), as the
+//   twin takes it, so both sides mask the same pixels. What bounds K7 is K4's
+//   operations; the epilogue adds one read of x, where a separate pass would write
+//   dxhat and read it and x back.
 // - Wgrad (K5/K6): one block per (split of the tiles, 16 input channels, 64 output
 //   channels). It walks its share of the 8x16 tiles, stages the activated halo'd x
 //   tile and the gy tile in shared memory, and accumulates its 9x16x64 slice of dw in
@@ -42,7 +54,8 @@
 // - bf16 (x, w, y of type __nv_bfloat16): values are widened to f32 in shared memory,
 //   the activated input is rounded back to bf16 before the taps (as the TPU kernel
 //   casts it to the input type), products accumulate in f32, the statistics come from
-//   the f32 accumulator, and y is rounded to bf16 when stored.
+//   the f32 accumulator, and y is rounded to bf16 when stored. K7 rounds once, at dx,
+//   as the TPU kernel does.
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes by
 // tdal_torch/ops/build.py: launchers take raw pointers and a stream, allocate nothing
@@ -114,16 +127,25 @@ __device__ __forceinline__ void stage_input(const T* __restrict__ xb, int H, int
   }
 }
 
-// K3 (kStats) and K4. Grid (tiles, B, ceil(Co / kCoT)).
-//   y = conv(act(x), w) * out_scale + out_shift, ReLU if relu; out_scale may be null.
-//   kStats: partial[(b * tiles + tile) * 2 + {0, 1}][co] = this tile's sum y, sum y^2.
-template <typename T, bool kInAct, bool kStats>
+// What a conv kernel does with its f32 accumulator.
+enum Epilogue {
+  kAffine,     // K4: y = acc * out_scale + out_shift (ReLU if relu); out_scale may be null
+  kStats,      // K3: y = acc + out_shift, and the tile's [sum y, sum y^2]
+  kDgradAct,   // K7: pre = xres*out_scale + out_shift, dxh = acc * [pre > 0],
+               //     y = dxh * out_scale, and the tile's [sum dxh*xres, sum dxh]
+};
+
+// K3, K4 and K7. Grid (tiles, B, ceil(Co / kCoT)).
+//   kStats and kDgradAct: partial[(b * tiles + tile) * 2 + {0, 1}][co] = this tile's
+//   two per-channel sums. xres (B, H, W, Co) is read by kDgradAct only.
+template <typename T, bool kInAct, Epilogue kEpi>
 __global__ void __launch_bounds__(kThreads)
 conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w, int H, int W, int C,
                int Co, int tiles_w, const float* __restrict__ in_scale,
                const float* __restrict__ in_shift, const float* __restrict__ out_scale,
-               const float* __restrict__ out_shift, int relu, T* __restrict__ y,
-               float* __restrict__ partial) {
+               const float* __restrict__ out_shift, int relu, const T* __restrict__ xres,
+               T* __restrict__ y, float* __restrict__ partial) {
+  constexpr bool kSums = kEpi != kAffine;
   extern __shared__ __align__(16) float smem[];
   float* xs = smem;       // [kHH * kHW][kKCP]
   float* ws = xs + kXS;   // [9][kKC][kCoT]
@@ -191,16 +213,26 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w, int H, int W, i
     for (int i = 0; i < kPX; ++i) {
       const int gx = x0 + pc0 + i;
       if (gy >= H || gx >= W) continue;
-      float v = fmaf(acc[i][j], sc, sh);
-      if (relu) v = fmaxf(v, 0.f);
-      if (kStats) {
-        s[j] += v;
-        ss[j] = fmaf(v, v, ss[j]);
+      const size_t at = (((size_t)b * H + gy) * W + gx) * Co + co;
+      float v;
+      if constexpr (kEpi == kDgradAct) {
+        const float xv = widen<T>(xres[at]);
+        const float dxh = __fadd_rn(__fmul_rn(xv, sc), sh) > 0.f ? acc[i][j] : 0.f;
+        s[j] = fmaf(dxh, xv, s[j]);
+        ss[j] += dxh;
+        v = dxh * sc;
+      } else {
+        v = fmaf(acc[i][j], sc, sh);
+        if (relu) v = fmaxf(v, 0.f);
+        if constexpr (kEpi == kStats) {
+          s[j] += v;
+          ss[j] = fmaf(v, v, ss[j]);
+        }
       }
-      y[(((size_t)b * H + gy) * W + gx) * Co + co] = narrow<T>(v);
+      y[at] = narrow<T>(v);
     }
   }
-  if (kStats) {
+  if constexpr (kSums) {
     // per-tile sums in a fixed order: over the 16 pixel groups, then one partial
     __syncthreads();  // done with xs; reuse it
     float* red = xs;  // [2][16 pixel groups][kCoT]
@@ -350,16 +382,18 @@ inline int tiles_w_of(int W) { return (W + kTW - 1) / kTW; }
 inline int tiles_of(int H, int W) { return ((H + kTH - 1) / kTH) * tiles_w_of(W); }
 inline cudaStream_t as_stream(void* s) { return static_cast<cudaStream_t>(s); }
 
-template <typename T, bool kInAct, bool kStats>
+template <typename T, bool kInAct, Epilogue kEpi>
 void launch_conv(const void* x, const void* w, int B, int H, int W, int C, int Co,
                  const float* in_scale, const float* in_shift, const float* out_scale,
-                 const float* out_shift, int relu, void* y, float* partial, void* stream) {
-  auto kern = conv3x3_kernel<T, kInAct, kStats>;
+                 const float* out_shift, int relu, const void* xres, void* y,
+                 float* partial, void* stream) {
+  auto kern = conv3x3_kernel<T, kInAct, kEpi>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kConvSmem);
   const dim3 grid(tiles_of(H, W), B, (Co + kCoT - 1) / kCoT);
   kern<<<grid, kThreads, kConvSmem, as_stream(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), H, W, C, Co, tiles_w_of(W),
-      in_scale, in_shift, out_scale, out_shift, relu, static_cast<T*>(y), partial);
+      in_scale, in_shift, out_scale, out_shift, relu, static_cast<const T*>(xres),
+      static_cast<T*>(y), partial);
 }
 
 template <typename T, bool kInAct>
@@ -396,18 +430,20 @@ void tdal_conv3x3_fwd_stats(const void* x, const void* w, int B, int H, int W, i
                             float* stats, int bf16, void* stream) {
   if (bf16) {
     if (in_act)
-      launch_conv<__nv_bfloat16, true, true>(x, w, B, H, W, C, Co, in_scale, in_shift,
-                                             nullptr, bias, 0, y, partial, stream);
+      launch_conv<__nv_bfloat16, true, kStats>(x, w, B, H, W, C, Co, in_scale, in_shift,
+                                               nullptr, bias, 0, nullptr, y, partial,
+                                               stream);
     else
-      launch_conv<__nv_bfloat16, false, true>(x, w, B, H, W, C, Co, in_scale, in_shift,
-                                              nullptr, bias, 0, y, partial, stream);
+      launch_conv<__nv_bfloat16, false, kStats>(x, w, B, H, W, C, Co, in_scale, in_shift,
+                                                nullptr, bias, 0, nullptr, y, partial,
+                                                stream);
   } else {
     if (in_act)
-      launch_conv<float, true, true>(x, w, B, H, W, C, Co, in_scale, in_shift, nullptr,
-                                     bias, 0, y, partial, stream);
+      launch_conv<float, true, kStats>(x, w, B, H, W, C, Co, in_scale, in_shift, nullptr,
+                                       bias, 0, nullptr, y, partial, stream);
     else
-      launch_conv<float, false, true>(x, w, B, H, W, C, Co, in_scale, in_shift, nullptr,
-                                      bias, 0, y, partial, stream);
+      launch_conv<float, false, kStats>(x, w, B, H, W, C, Co, in_scale, in_shift, nullptr,
+                                        bias, 0, nullptr, y, partial, stream);
   }
   if (cudaPeekAtLastError() != cudaSuccess) return;
   stats_reduce_kernel<<<Co, kThreads, 0, as_stream(stream)>>>(partial, B * tiles_of(H, W),
@@ -419,11 +455,30 @@ void tdal_conv3x3_fwd(const void* x, const void* w, int B, int H, int W, int C, 
                       const float* scale, const float* shift, int relu, void* y, int bf16,
                       void* stream) {
   if (bf16)
-    launch_conv<__nv_bfloat16, false, false>(x, w, B, H, W, C, Co, nullptr, nullptr, scale,
-                                             shift, relu, y, nullptr, stream);
+    launch_conv<__nv_bfloat16, false, kAffine>(x, w, B, H, W, C, Co, nullptr, nullptr,
+                                               scale, shift, relu, nullptr, y, nullptr,
+                                               stream);
   else
-    launch_conv<float, false, false>(x, w, B, H, W, C, Co, nullptr, nullptr, scale, shift,
-                                     relu, y, nullptr, stream);
+    launch_conv<float, false, kAffine>(x, w, B, H, W, C, Co, nullptr, nullptr, scale,
+                                       shift, relu, nullptr, y, nullptr, stream);
+}
+
+// K7. gy (B, H, W, Co), wt (3, 3, Co, C) (the forward weight flipped, in/out swapped),
+// x (B, H, W, C) and dx (B, H, W, C) of f32 or bf16; s, t (C,) f32; partial
+// (B * tiles, 2, C) f32 scratch; stats (2, C) f32 = [sum dxh*x, sum dxh].
+void tdal_conv3x3_dgrad_act(const void* gy, const void* wt, const void* x, int B, int H,
+                            int W, int Co, int C, const float* s, const float* t,
+                            void* dx, float* partial, float* stats, int bf16,
+                            void* stream) {
+  if (bf16)
+    launch_conv<__nv_bfloat16, false, kDgradAct>(gy, wt, B, H, W, Co, C, nullptr, nullptr,
+                                                 s, t, 0, x, dx, partial, stream);
+  else
+    launch_conv<float, false, kDgradAct>(gy, wt, B, H, W, Co, C, nullptr, nullptr, s, t, 0,
+                                         x, dx, partial, stream);
+  if (cudaPeekAtLastError() != cudaSuccess) return;
+  stats_reduce_kernel<<<C, kThreads, 0, as_stream(stream)>>>(partial, B * tiles_of(H, W),
+                                                             C, stats);
 }
 
 // K5 (in_act) / K6. x (B, H, W, C), gy (B, H, W, Co) of f32 or bf16; partial

@@ -1,9 +1,10 @@
-"""Detector train step for CenterPoint models.
+"""Detector train and predict steps for CenterPoint models.
 
-Port of the train half of ``tdal/pipeline/detector_engine.py:make_detector_steps``:
-the forward in train mode (BatchNorm running statistics update in place), the
-CenterHead loss, the backward, and one optimizer step. The predict step arrives with
-the inference slice.
+Port of ``tdal/pipeline/detector_engine.py``: the train step of
+``make_detector_steps`` (the forward in train mode, BatchNorm running statistics
+updated in place, the CenterHead loss, the backward, one optimizer step), its predict
+step (``make_predict_step``: the eval forward, decode and NMS), the double-flip predict
+step (``make_tta_predict_step``) and ``predictions_to_host``.
 """
 
 from __future__ import annotations
@@ -13,7 +14,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from tdal_torch.models.center_head import center_head_loss
+from tdal_torch.models.center_head import center_head_loss, predict
+from tdal_torch.models.tta import average_double_flip_preds
 from tdal_torch.runtime.train_state import TrainState
 
 TARGET_KEYS = ("hm", "anno_box", "ind", "mask", "cat")
@@ -50,3 +52,51 @@ def make_detector_steps(detector, code_weights: Sequence[float], weight: float =
         return {k: v.detach() for k, v in logs.items()}
 
     return train_step
+
+
+def make_predict_step(detector, test_cfg: dict):
+    """-> ``predict_step(state, points) -> predictions``: the eval forward of
+    ``state.model`` on points (B, N, D) (a tensor on the model's device) and
+    ``predict``: (B, post_max * tasks) tensors ``box3d_lidar``, ``scores``,
+    ``label_preds``, ``valid``."""
+    num_classes = detector.num_classes
+
+    @torch.no_grad()
+    def predict_step(state: TrainState, points):
+        state.model.eval()
+        return predict(state.model(points), test_cfg, num_classes)
+
+    return predict_step
+
+
+def make_tta_predict_step(detector, test_cfg: dict):
+    """The double-flip predict step: points (B*4, N, D) ordered [orig, yflip, xflip,
+    both] per frame; each task's maps are flipped back and averaged after activation
+    before decode -> predictions with batch B."""
+    num_classes = detector.num_classes
+
+    @torch.no_grad()
+    def predict_step(state: TrainState, points):
+        state.model.eval()
+        averaged = [average_double_flip_preds(p) for p in state.model(points)]
+        return predict(averaged, test_cfg, num_classes, activated=True)
+
+    return predict_step
+
+
+def predictions_to_host(batch_preds: dict, tokens) -> dict:
+    """Fixed-shape predictions -> per-frame numpy dicts keyed by token:
+    {'box3d_lidar' (K, 7|9), 'scores' (K,), 'label_preds' (K,)} of the valid slots.
+    The four tensors travel as one f32 block, so a batch costs one device-to-host copy
+    (labels are small integers, exact in f32)."""
+    boxes = batch_preds["box3d_lidar"]
+    d = boxes.shape[-1]
+    block = torch.cat([boxes.float(), batch_preds["scores"].float()[..., None],
+                       batch_preds["label_preds"].float()[..., None],
+                       batch_preds["valid"].float()[..., None]], dim=-1).cpu().numpy()
+    out = {}
+    for i, token in enumerate(tokens):
+        rows = block[i][block[i, :, d + 2] > 0]
+        out[token] = {"box3d_lidar": rows[:, :d], "scores": rows[:, d],
+                      "label_preds": rows[:, d + 1].astype(np.int64)}
+    return out

@@ -1,4 +1,4 @@
-"""The 3x3 conv ops of the port (plain twins of K3, K4, K5/K6 on the CPU) against
+"""The 3x3 conv ops of the port (plain twins of K3, K4, K5/K6, K7 on the CPU) against
 ``tdal.ops.pallas_conv``, whose CPU route is its XLA reference (the route
 ``tests/test_pallas_conv.py`` runs).
 
@@ -8,6 +8,8 @@ Inputs come from seeded numpy and go through both packages. Tolerances (f32):
 - gradients: rtol 1e-5, atol 1e-4 x (max |ref| + 1), the tolerance tdal's own custom
   VJP test uses against autodiff (``test_pallas_conv.py:145-149``), since the
   moment cotangent 2 y gss makes the backward's sums large.
+- K7's twin in bf16: within one bf16 step of its f32 arithmetic rounded once, and
+  equal to it on all but a few elements (below).
 """
 
 import numpy as np
@@ -116,6 +118,64 @@ def test_conv3x3_affine_matches_tdal(relu):
     _close(y.numpy(), y_ref, 1e-5, 1e-5)
 
 
+@pytest.mark.parametrize("case", CASES, ids=["tdal-vjp-shape", "ragged-halo"])
+def test_dgrad_act_twin_and_backward_match_tdal_vjp(case):
+    """K7's twin, and the CPU backward of ``conv3x3_act_stats`` with ``in_act``, against
+    ``jax.vjp`` of tdal's op (its XLA ``_cas_bwd``, the same function) for dx, ds and
+    dt, with shifts of both signs so the ReLU mask varies. The cotangent of the moments
+    is 0, so the conv's cotangent is gy itself."""
+    *shape, _ = case
+    x, w, b, s, _, gy, _ = _inputs(9, *shape)
+    t = np.random.default_rng(10).normal(size=shape[3]).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: pc.conv3x3_act_stats(*a, True),
+                     *map(jnp.asarray, (x, w, b, s, t)))
+    dx_ref, _, _, ds_ref, dt_ref = vjp((jnp.asarray(gy), jnp.zeros((2, shape[4]))))
+    mask = x * s + t > 0
+    assert 0.2 < mask.mean() < 0.8
+
+    dx, st = cv.conv3x3_dgrad_act_plain(*map(torch.from_numpy, (gy, np.asarray(
+        cv._flip_swap(torch.from_numpy(w))), x, s, t)))
+    for got, want in ((dx, dx_ref), (st[0], ds_ref), (st[1], dt_ref)):
+        _close(got.numpy(), want, 1e-5, 1e-4)
+
+    args = [torch.tensor(a, requires_grad=True) for a in (x, w, b, s, t)]
+    y, stats = cv.conv3x3_act_stats(*args, True)
+    torch.autograd.backward([y, stats], [torch.from_numpy(gy), torch.zeros(2, shape[4])])
+    for a, want in zip((args[0], args[3], args[4]), (dx_ref, ds_ref, dt_ref)):
+        _close(a.grad.numpy(), want, 1e-5, 1e-4)
+
+
+def test_dgrad_act_twin_rounds_once_in_bf16():
+    """In bf16, K7's twin rounds dx once: dxh * s of the f32 accumulator, then bf16 (the
+    fused kernel's arithmetic; ``tdal``'s Pallas K7 rounds once too). Against that
+    value computed in float64 from the same bf16 operands it differs by at most one
+    bf16 step and on under 1% of elements (where the f32 and float64 sums fall on two
+    sides of a rounding boundary). tdal's XLA route, which rounds dxhat to bf16 before
+    the mask, differs on far more: so this pins the single rounding."""
+    x, w, _, s, _, gy, _ = _inputs(11, 2, 12, 13, 16, 24)
+    t = np.random.default_rng(12).normal(size=16).astype(np.float32)
+    gyb, wb, xb = (torch.from_numpy(a).bfloat16() for a in (gy, w, x))
+    wt = cv._flip_swap(wb)
+    dx, _ = cv.conv3x3_dgrad_act_plain(gyb, wt, xb, torch.from_numpy(s), torch.from_numpy(t))
+    assert dx.dtype == torch.bfloat16
+
+    acc = np.asarray(pc._xla_conv(jnp.asarray(gyb.double().numpy()),
+                                  jnp.asarray(wt.double().numpy())), np.float64)
+    xf = xb.float().numpy()
+    once = torch.from_numpy(acc * (xf * s + t > 0) * s).bfloat16().double().numpy()
+    got = dx.double().numpy()
+    step = 2.0**-7 * np.abs(once)  # one bf16 step at each value (8 significant bits)
+    assert (np.abs(got - once) <= step + 1e-30).all()
+    assert (got != once).mean() < 0.01
+
+    _, vjp = jax.vjp(lambda *a: pc.conv3x3_act_stats(*a, True),
+                     *(jnp.asarray(a.float().numpy()).astype(jnp.bfloat16) for a in (xb, wb)),
+                     jnp.zeros(24), jnp.asarray(s), jnp.asarray(t))
+    dx_xla = np.asarray(vjp((jnp.asarray(gyb.float().numpy()).astype(jnp.bfloat16),
+                             jnp.zeros((2, 24))))[0], np.float64)
+    assert (dx_xla != once).mean() > 0.05  # 14% of the elements (half are masked)
+
+
 def test_wgrad_twin_is_the_correlation_of_tdal():
     """K5/K6's twin against tdal's XLA wgrad (the lhs/rhs-transposed correlation of
     ``_cas_bwd``) on the activated input."""
@@ -158,6 +218,8 @@ def test_wrappers_take_the_twin_on_the_cpu_only():
     cv.conv3x3_fwd(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b))
     cv.conv3x3_wgrad(torch.from_numpy(x), torch.zeros(1, 5, 6, 4), torch.from_numpy(s),
                      torch.from_numpy(t), False)
+    cv.conv3x3_dgrad_act(torch.zeros(1, 5, 6, 4), cv._flip_swap(torch.from_numpy(w)),
+                         *map(torch.from_numpy, (x, s, t)))
     assert cv.launches == before
 
 

@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain twins, on the card: the fused
-PointNet-seg kernels (K1, K2) and the 3x3 conv kernels (K3, K4, K5/K6, with their
+PointNet-seg kernels (K1, K2) and the 3x3 conv kernels (K3, K4, K5/K6, K7, with their
 tolerances below), and one detector train step through them.
 
 This file imports no jax, so it also runs where only PyTorch is installed:
@@ -104,17 +104,29 @@ def test_wrappers_check_their_inputs(cuda):
 
 
 # ---------------------------------------------------------------------------
-# The 3x3 conv kernels K3, K4, K5/K6 (tdal_torch/ops/csrc/conv3x3.cu)
+# The 3x3 conv kernels K3, K4, K5/K6, K7 (tdal_torch/ops/csrc/conv3x3.cu)
 #
 # Tolerances, relative to max(1, max |twin|): 1e-5 for every f32 output and for the
 # bf16 moments and wgrad (f32 accumulators of the same exact products, summed in
-# another order); 8e-3 for bf16 y and dgrad, one bf16 rounding step (2^-7 of the
-# largest value) that a summation-order difference can flip.
+# another order); 8e-3 for bf16 y and dgrad (K4's and K7's dx), one bf16 rounding step
+# (2^-7 of the largest value) that a summation-order difference can flip. K7's ds and
+# dt: 1e-5 of sum |dxh * x| and of sum |dxh| per channel (f32 sums of the same terms
+# in another order; a signed sum can be far smaller than its terms).
 # ---------------------------------------------------------------------------
 
 from tdal_torch.ops import conv3x3 as cv  # noqa: E402
 
 CONV_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (8e-3, 1e-5)}  # (y/dx, stats/dw)
+
+
+def dgrad_act_stats_err(got, x, gy, wt, s, t):
+    """K7's statistics (2, C) against its twin's, each channel's error over the sum of
+    the absolute terms: (sum |dxh * x|, sum |dxh|)."""
+    _, want = cv.conv3x3_dgrad_act_plain(gy, wt, x, s, t)
+    dxh = cv._conv_f32(gy.float(), wt.float()) * (x.float() * s + t > 0)
+    scale = torch.stack([(dxh * x.float()).abs().sum(dim=(0, 1, 2)),
+                         dxh.abs().sum(dim=(0, 1, 2))])
+    return float(((got - want).abs() / scale.clamp_min(1e-30)).max())
 
 
 def _conv_inputs(cuda, b, h, w, c, co, dtype, seed=0):
@@ -143,20 +155,28 @@ def test_conv_kernels_match_twins(cuda, shape, in_act, dtype):
     dw = cv.conv3x3_wgrad(x, gy, s, t, in_act)
     torch.cuda.synchronize()
     assert {k: cv.launches[k] - before[k] for k in before} == {
-        "conv3x3_fwd_stats": 1, "conv3x3_fwd": 1, "conv3x3_wgrad": 1}
+        "conv3x3_fwd_stats": 1, "conv3x3_fwd": 1, "conv3x3_wgrad": 1, "conv3x3_dgrad_act": 0}
     y_t, stats_t = cv.conv3x3_fwd_stats_plain(x, w, b, s, t, in_act)
     assert y.dtype == dtype and max_rel_err(y.float(), y_t.float()) <= tol_y
     assert max_rel_err(stats, stats_t) <= tol_acc
     dx_t = cv.conv3x3_fwd_plain(gy, wt, torch.zeros(shape[3], device=cuda))
     assert max_rel_err(dx.float(), dx_t.float()) <= tol_y
     assert max_rel_err(dw, cv.conv3x3_wgrad_plain(x, gy, s, t, in_act)) <= tol_acc
+    if in_act:  # K7; shifts of both signs, so that the mask varies
+        t = t - 1.0
+        dx, st = cv.conv3x3_dgrad_act(gy, wt, x, s, t)
+        torch.cuda.synchronize()
+        assert cv.launches["conv3x3_dgrad_act"] == before["conv3x3_dgrad_act"] + 1
+        dx_t, _ = cv.conv3x3_dgrad_act_plain(gy, wt, x, s, t)
+        assert dx.dtype == dtype and max_rel_err(dx.float(), dx_t.float()) <= tol_y
+        assert dgrad_act_stats_err(st, x, gy, wt, s, t) <= 1e-5
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("in_act", [False, True])
 def test_conv_autograd_on_card_matches_the_cpu(cuda, in_act):
-    """conv3x3_act_stats forward and its five gradients (K3, K4, K5 on the card)
-    against the same op on the CPU (the twins), f32."""
+    """conv3x3_act_stats forward and its five gradients (K3, K5 and K7 or K4 on the
+    card) against the same op on the CPU (the twins), f32."""
     x, w, b, s, t, gy = _conv_inputs(torch.device("cpu"), 2, 19, 23, 12, 24, torch.float32)
     gs = torch.randn(2, 24, generator=torch.Generator().manual_seed(3))
     grads = []
@@ -180,13 +200,21 @@ def test_conv_wrappers_check_their_inputs(cuda):
         cv.conv3x3_fwd_stats(x.transpose(1, 2), w, b, s, t, False)
     with pytest.raises(ValueError):
         cv.conv3x3_fwd(x, w[:, :, :3], b)
+    gy = torch.zeros_like(x)
+    with pytest.raises(ValueError):
+        cv.conv3x3_dgrad_act(gy, w, x[:, :4], s, t)
+    with pytest.raises(TypeError):
+        cv.conv3x3_dgrad_act(gy, w, x.bfloat16(), s, t)
+    with pytest.raises(TypeError):
+        cv.conv3x3_dgrad_act(gy, w, x, s.double(), t)
 
 
 @pytest.mark.gpu
 def test_detector_train_step_on_card_runs_the_kernels(cuda):
     """One train step of a narrow PointPillars on the card: every stride-1 3x3 conv
-    of the trunk and the head is one K3 forward and one K4 + one K5 backward, and the
-    loss matches the same step on a CPU copy."""
+    of the trunk and the head is one K3 forward and one K5 + one dgrad in the backward
+    (K7 where the conv takes its producer's BN + ReLU, K4 elsewhere), and the loss
+    matches the same step on a CPU copy."""
     import copy
 
     import numpy as np
@@ -205,6 +233,8 @@ def test_detector_train_step_on_card_runs_the_kernels(cuda):
                                        rpn_us_filters=(32, 32, 32)),
                           torch.Generator().manual_seed(0))
     sites = sum(isinstance(m, FusedConvBN) for m in model.modules())
+    # the chained sites: all but each RPN stage's and the head's first conv
+    chained = sites - len(model.rpn.blocks) - 1
     rng = np.random.default_rng(0)
     pts = torch.from_numpy(rng.uniform(-8, 8, (2, 3000, 5)).astype(np.float32))
     hm = torch.zeros(2, 64, 64, 3)
@@ -224,6 +254,7 @@ def test_detector_train_step_on_card_runs_the_kernels(cuda):
         if dev.type == "cuda":
             torch.cuda.synchronize()
             assert {k: cv.launches[k] - before[k] for k in before} == {
-                "conv3x3_fwd_stats": sites, "conv3x3_fwd": sites, "conv3x3_wgrad": sites}
+                "conv3x3_fwd_stats": sites, "conv3x3_fwd": sites - chained,
+                "conv3x3_dgrad_act": chained, "conv3x3_wgrad": sites}
         losses.append(float(total.detach()))
     assert np.isfinite(losses[0]) and losses[0] == pytest.approx(losses[1], rel=1e-4)
