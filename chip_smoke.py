@@ -6,7 +6,8 @@ nothing of JAX or of ``tdal``, and exits non-zero on any failure. Phases:
 
 1. the device: torch's name for it and nvidia-smi's name and power limit;
    TF32 off for every reference product;
-2. the kernels' build, timed;
+2. the kernels' build, timed, and each conv and wgrad kernel instantiation's registers,
+   shared memory and spills (``-Xptxas -v``);
 3. K1 (``fused_seg_encoder``) and K2 (``fused_seg_decoder``) against their plain
    twins at the labelers' production shapes (static B=64 N=4096 Cin=3, dynamic
    B=64 N=5120 Cin=4), in both operand modes, with kernel and twin times (CUDA
@@ -27,11 +28,13 @@ nothing of JAX or of ``tdal``, and exits non-zero on any failure. Phases:
    468^2x64, 234^2x128, 117^2x256, the head's shared conv 468^2x384->64 and its branch
    conv 468^2x64->320; K7 at the four with an input affine) and a ragged 37x41 image
    with positive shifts (a halo leak shows there), in f32 and bf16 and with the input
-   affine on and off; kernel, twin and cuDNN times (CUDA events, warm, median of 10)
-   and the bound; for K7 also the unfused route (K4, then the mask and sums in torch)
-   and cuDNN's ``conv2d_input`` with the same epilogue. Then K4 as ``conv3x3`` (the
-   function of tdal's benchmark prototype, ``benchmarks/proto_pallas_conv.py``) in
-   bf16 at the stage-1 shape;
+   affine on and off; kernel, twin and cuDNN times (CUDA events, warm, median of 10;
+   cuDNN with ``torch.backends.cudnn.benchmark`` on, so its own fastest algorithm, in
+   a child process, so that the plans it finds stay out of phases 6-7) and the bound;
+   for K7 also the unfused route (K4, then the mask and sums in torch) and cuDNN's
+   ``conv2d_input`` with the same epilogue. Then K4 as ``conv3x3`` (the function of
+   tdal's benchmark prototype, ``benchmarks/proto_pallas_conv.py``) in bf16 at the
+   stage-1 shape;
 6. PointPillars training end to end: ``configs/waymo/pp/waymo_centerpoint_pp_two_
    pfn_stride1_3x.py`` through the port's ``Config.fromfile``, ``build_detector``
    (fresh init from seed 0) and ``train_detector`` at batch 4 on a synthetic dataset
@@ -39,7 +42,9 @@ nothing of JAX or of ``tdal``, and exits non-zero on any failure. Phases:
    (2 steps), then 2 epochs (4 steps) with the launch counters set to 0 just before
    and read just after. Every loss must be finite and every step must launch K3 and
    K5/K6 16 times (16 stride-1 3x3 convs), K7 12 times (the 12 that take their
-   producer's BN + ReLU) and K4 4 times (the other 4).
+   producer's BN + ReLU) and K4 4 times (the other 4). The step alone is timed, and
+   one more step runs under ``torch.profiler``: device time by kernel name (top 10),
+   the conv kernels' share of the step and the device's idle share.
    Then one train step on the card is held against the same step on a CPU copy
    (plain versions, no kernel): the loss, the BN running statistics, the gradients
    within 8x a noise floor measured on the CPU copy (the change under a permutation
@@ -83,8 +88,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
-PEAK_FLOPS = {False: 67e12, True: 989e12}  # f32 on the CUDA cores; bf16 operands
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit). f32 operands:
+# what the card can do with products as accurate as f32 on its tensor cores, split TF32
+# ("3xTF32": three TF32 products for each f32 product) at the 495 TFLOP/s TF32 peak,
+# so 3 x FLOP / 495 TFLOP/s (the 67 TFLOP/s of the CUDA cores, the bound of f32 kernels
+# without tensor cores, a 3xTF32 kernel beats). bf16 operands: the bf16 tensor cores.
+PEAK_FLOPS = {False: 495e12 / 3, True: 989e12}
 HBM_BYTES_PER_S = 3.35e12
 
 # max |kernel - twin| / max(1, max |twin|), by operand mode (bf16_operands). f32: the
@@ -112,6 +121,37 @@ DEC_WIDTHS = (512, 256, 128, 128, 2)
 
 def log(msg: str):
     print(msg, flush=True)
+
+
+_CONV_ENTRY = re.compile(
+    r"(conv3x3_kernel|wgrad_kernel)I(f|13__nv_bfloat16)Lb([01])E"
+    r"(?:LNS_8EpilogueE([012])E)?Lb([01])E")
+_EPILOGUES = ("affine", "stats", "dgrad_act")
+
+
+def conv_build_report(build_log: str, lib) -> list:
+    """Registers, shared memory (dynamic from the launcher, static from ptxas) and spill
+    bytes of every conv and wgrad kernel instantiation, from ``-Xptxas -v``."""
+    rows = []
+    for chunk in build_log.split("Compiling entry function '")[1:]:
+        m = _CONV_ENTRY.search(chunk.split("'", 1)[0])
+        if not m:
+            continue
+        kind, elem, in_act, epi, vec = m.groups()
+        bf16 = elem != "f"
+        name = (f"{kind}<{'bf16' if bf16 else 'f32'}, in_act={in_act}"
+                + (f", {_EPILOGUES[int(epi)]}" if epi is not None else "") + f", vec={vec}>")
+
+        def num(pattern):
+            m = re.search(pattern, chunk)
+            return int(m.group(1)) if m else 0
+
+        rows.append(dict(kernel=name, registers=num(r"Used (\d+) registers"),
+                         static_smem=num(r"(\d+) bytes smem"),
+                         dynamic_smem=lib.conv3x3_smem(kind == "wgrad_kernel", bf16),
+                         spill_stores=num(r"(\d+) bytes spill stores"),
+                         spill_loads=num(r"(\d+) bytes spill loads")))
+    return rows
 
 
 def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
@@ -441,6 +481,70 @@ CONV_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (8e-3, 1e-5)}
 # order, and a signed sum can be far smaller than its terms
 
 
+def conv_case_inputs(shape_name, dtype, device) -> dict:
+    """Phase 5's inputs for one shape and operand mode, from a seeded generator."""
+    b, h, w, c, co = CONV_SHAPES[shape_name]
+    g = torch.Generator().manual_seed(b * h + c)
+    x = torch.randn(b, h, w, c, generator=g).to(dtype).to(device)
+    wt = (torch.randn(3, 3, c, co, generator=g) / (3 * c ** 0.5)).to(dtype).to(device)
+    bias = torch.randn(co, generator=g).to(device)
+    s = (0.5 + torch.rand(c, generator=g)).to(device)
+    t = (0.5 + torch.rand(c, generator=g) if shape_name == "ragged halo"
+         else torch.randn(c, generator=g)).to(device)
+    gy = torch.randn(b, h, w, co, generator=g).to(dtype).to(device)
+    return dict(x=x, wt=wt, bias=bias, s=s, t=t, gy=gy, x_cl=x.permute(0, 3, 1, 2),
+                gy_cl=gy.permute(0, 3, 1, 2), w_oihw=wt.permute(3, 2, 0, 1).contiguous())
+
+
+def library_calls(inp, shape_name, mode) -> dict:
+    """The cuDNN call computing each kernel's function on phase 5's inputs (TF32 off in
+    f32); K7's is ``conv2d_input`` + the torch epilogue, P's a bias-free ``conv2d``."""
+    from torch.nn.grad import conv2d_input, conv2d_weight
+
+    x, x_cl, gy_cl, w_oihw = inp["x"], inp["x_cl"], inp["gy_cl"], inp["w_oihw"]
+    calls = {
+        "conv3x3_fwd_stats": lambda: torch.nn.functional.conv2d(
+            x_cl, w_oihw, inp["bias"].to(x.dtype), padding=1),
+        "conv3x3_fwd": lambda: conv2d_input(x_cl.shape, w_oihw, gy_cl, padding=1),
+        "conv3x3_wgrad": lambda: conv2d_weight(x_cl, w_oihw.shape, gy_cl, padding=1),
+    }
+    if shape_name != "head shared":
+        calls["conv3x3_dgrad_act"] = lambda: dgrad_act_epilogue(
+            conv2d_input(x_cl.shape, w_oihw, gy_cl, padding=1).permute(0, 2, 3, 1), x,
+            inp["s"], inp["t"])
+    if shape_name == PROTO["shape"] and mode == "bf16":
+        calls[PROTO["name"]] = lambda: torch.nn.functional.conv2d(x_cl, w_oihw, padding=1)
+    return calls
+
+
+def library_times(device) -> dict:
+    """Every phase 5 library call's time with ``torch.backends.cudnn.benchmark`` on, so
+    cuDNN picks its fastest algorithm by trying them: the yardstick is cuDNN's best,
+    not its heuristic's pick. Run in a process of its own (``--library-times``): cuDNN
+    keeps the plans it found for a shape and uses them with benchmark off as well, so
+    in this process they would reach the train and inference steps of phases 6-7."""
+    torch.backends.cudnn.benchmark = True
+    out = {}
+    for shape_name in CONV_SHAPES:
+        for dtype, mode in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            inp = conv_case_inputs(shape_name, dtype, device)
+            for name, fn in library_calls(inp, shape_name, mode).items():
+                out[f"{name}|{shape_name} {mode}"] = time_ms(fn, reps=10, warm=2)
+            del inp
+            torch.cuda.empty_cache()
+    return out
+
+
+def library_times_apart() -> dict:
+    """``library_times`` in a child process (this script with ``--library-times``)."""
+    r = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--library-times"],
+                       capture_output=True, text=True, timeout=900)
+    if r.returncode != 0:
+        raise RuntimeError(f"the library timing process failed:\n{r.stdout[-2000:]}"
+                           f"\n{r.stderr[-2000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
 def dgrad_act_scales(gy, wt, x, s, t):
     """(2, C): sum |dxh * x| and sum |dxh| per channel, from the twin's arithmetic."""
     from tdal_torch.ops import conv3x3 as cv
@@ -501,33 +605,22 @@ def conv_reading(name, case, errs, ms, plain_ms, library_ms, work, bf16, **extra
 def phase_conv(device) -> dict:
     """K3, K4 (dgrad), K5/K6 and K7 against their twins at the production shapes, and
     K4 as the benchmark prototype's ``conv3x3``."""
-    from torch.nn.grad import conv2d_input, conv2d_weight
-
     from tdal_torch.ops import conv3x3 as cv
 
     results = {k: {} for k in (*CONV_REPLACES, PROTO["name"])}
     failures = []
+    t0 = time.perf_counter()
+    lib_ms = library_times_apart()
+    log(f"  cuDNN's times in benchmark mode, in a process of their own "
+        f"({time.perf_counter() - t0:.1f} s)")
     for shape_name, (b, h, w, c, co) in CONV_SHAPES.items():
         for dtype, mode in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-            g = torch.Generator().manual_seed(b * h + c)
-            x = torch.randn(b, h, w, c, generator=g).to(dtype).to(device)
-            wt = (torch.randn(3, 3, c, co, generator=g) / (3 * c ** 0.5)).to(dtype).to(device)
-            bias = torch.randn(co, generator=g).to(device)
-            s = (0.5 + torch.rand(c, generator=g)).to(device)
-            t = (0.5 + torch.rand(c, generator=g) if shape_name == "ragged halo"
-                 else torch.randn(c, generator=g)).to(device)
-            gy = torch.randn(b, h, w, co, generator=g).to(dtype).to(device)
+            inp = conv_case_inputs(shape_name, dtype, device)
+            x, wt, bias, s, t, gy = (inp[k] for k in ("x", "wt", "bias", "s", "t", "gy"))
             wf = cv._flip_swap(wt)
             zero_c = torch.zeros(c, device=device)
-            x_cl, gy_cl = x.permute(0, 3, 1, 2), gy.permute(0, 3, 1, 2)
-            w_oihw = wt.permute(3, 2, 0, 1).contiguous()
-            library = {  # the cuDNN call computing the same conv (TF32 off in f32)
-                "conv3x3_fwd_stats": lambda: torch.nn.functional.conv2d(
-                    x_cl, w_oihw, bias.to(dtype), padding=1),
-                "conv3x3_fwd": lambda: conv2d_input(x_cl.shape, w_oihw, gy_cl, padding=1),
-                "conv3x3_wgrad": lambda: conv2d_weight(x_cl, w_oihw.shape, gy_cl, padding=1),
-            }
-            library_ms = {k: time_ms(f, reps=10, warm=2) for k, f in library.items()}
+            library_ms = {k: lib_ms[f"{k}|{shape_name} {mode}"]
+                          for k in library_calls(inp, shape_name, mode)}
             tol_y, tol_acc = CONV_TOL[dtype]
             bf16 = dtype == torch.bfloat16
             for in_act in (False, True):
@@ -575,9 +668,7 @@ def phase_conv(device) -> dict:
                         time_ms(lambda: cv.conv3x3_dgrad_act(gy, wf, x, s, t), reps=10, warm=2),
                         time_ms(lambda: cv.conv3x3_dgrad_act_plain(gy, wf, x, s, t), reps=5,
                                 warm=1),
-                        time_ms(lambda: dgrad_act_epilogue(
-                            conv2d_input(x_cl.shape, w_oihw, gy_cl, padding=1).permute(
-                                0, 2, 3, 1), x, s, t), reps=10, warm=2),
+                        library_ms[name],
                         conv_work(name, b, h, w, c, co, x.element_size()), bf16,
                         unfused_ms=time_ms(lambda: dgrad_act_unfused(gy, wf, x, s, t),
                                            reps=10, warm=2),
@@ -597,12 +688,11 @@ def phase_conv(device) -> dict:
                         name, f"{case} B={b} {h}x{w} {c}->{co}", errs,
                         time_ms(lambda: cv.conv3x3(x, wt), reps=10, warm=2),
                         time_ms(lambda: cv.conv3x3_fwd_plain(x, wt, zero_co), reps=5, warm=1),
-                        time_ms(lambda: torch.nn.functional.conv2d(x_cl, w_oihw, padding=1),
-                                reps=10, warm=2),
+                        library_ms[name],
                         conv_work(name, b, h, w, c, co, x.element_size()), bf16)
                 if not all(e[1] <= e[2] for e in errs):
                     failures.append(f"{name} {case}: {json.dumps(r)}")
-            del x, wt, gy, wf, x_cl, gy_cl, w_oihw
+            del inp, x, wt, gy, wf
             torch.cuda.empty_cache()
     if failures:
         raise AssertionError("conv kernels disagree with their twins: " + "; ".join(failures))
@@ -877,6 +967,53 @@ def pp_training(root: Path):
     return cfg, model, TrainState(model, opt), ds, total_steps
 
 
+CONV_KERNEL_NAMES = ("conv3x3_kernel", "wgrad_kernel", "stats_reduce_kernel",
+                     "wgrad_reduce_kernel")
+
+
+def profile_step(step, state, batch) -> dict:
+    """One train step under ``torch.profiler`` (CPU and CUDA activities): device time by
+    kernel name, the conv kernels' summed share and the device's idle share of the
+    step's synchronised wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_name, spans = {}, []
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        r = evt.time_range
+        by_name[evt.name] = by_name.get(evt.name, 0.0) + (r.end - r.start) / 1e3
+        spans.append((r.start, r.end))
+    if not spans:
+        log("  torch.profiler showed no device time on this machine: the derived conv "
+            "share below stands alone")
+        return dict(device_events=0, wall_ms=wall_ms)
+    busy_us, reach = 0.0, -math.inf  # the union of the device intervals
+    for a, b in sorted(spans):
+        busy_us += max(0.0, b - max(a, reach))
+        reach = max(reach, b)
+    busy_ms = busy_us / 1e3
+    conv_ms = sum(v for k, v in by_name.items() if any(n in k for n in CONV_KERNEL_NAMES))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    out = dict(device_events=len(spans), wall_ms=wall_ms, device_busy_ms=busy_ms,
+               device_idle_share=1 - busy_ms / wall_ms, conv_kernels_ms=conv_ms,
+               conv_share_of_step=conv_ms / wall_ms, conv_share_of_busy=conv_ms / busy_ms,
+               top=[(k[:120], v) for k, v in top])
+    log(f"  profiled step: {wall_ms:.1f} ms wall (profiler on), device busy {busy_ms:.1f} ms, "
+        f"idle share {out['device_idle_share']:.3f}; the conv kernels {conv_ms:.1f} ms = "
+        f"{100 * out['conv_share_of_step']:.1f}% of the step ({100 * out['conv_share_of_busy']:.1f}"
+        f"% of the busy time); device time by kernel, top 10:")
+    for k, v in top:
+        log(f"    {v:9.3f} ms  {k[:120]}")
+    return out
+
+
 def phase_train(device) -> dict:
     from tdal_torch.data.detection import collate_detection
     from tdal_torch.models.builder import build_detector, build_voxel_config
@@ -934,6 +1071,7 @@ def phase_train(device) -> dict:
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
         step_ms = 1e3 * statistics.median(step_s)
+        profiled = profile_step(step, state, batch)
         # the checkpoint that train_detector writes at each epoch's end, alone
         t0 = time.perf_counter()
         state.save(root / "checkpoint_probe.pt")
@@ -953,6 +1091,7 @@ def phase_train(device) -> dict:
         check = check_step_against_cpu(model, model_bf16, batch, device, cfg, total_steps)
         del model_bf16
     return dict(launches=launches, losses=losses, step_ms=step_ms, step_s=step_s,
+                profiled_step=profiled,
                 timed_s=timed_s, frames_per_s=frames_per_s, checkpoint_s=ckpt_s,
                 frames_per_s_without_checkpoints=frames_per_s_no_ckpt, peak_gib=peak_gib,
                 **check), cfg, model
@@ -972,7 +1111,9 @@ INFER_BATCH = 4
 MAP_TOL = 1e-4
 # a candidate kept on one side only must sit on a knife edge: its score within
 # SCORE_EPS (= MAP_TOL, the largest score difference the map check lets through) of the
-# score threshold or of the pre-NMS cut, an IoU within IOU_EPS of the NMS threshold
+# score threshold, of the pre-NMS cut or of the post-NMS cut (the last kept box's score
+# where a side filled all post-max slots: tied scores, as a whole empty BEV region
+# gives, take the last slot in either order), an IoU within IOU_EPS of the NMS threshold
 # against a box kept on either side, a score within SCORE_EPS of such an overlapping
 # box's (their order may swap), or an overlap above the threshold less IOU_EPS with
 # another candidate that differs for one of these reasons (a cascade)
@@ -1016,6 +1157,10 @@ def explain_kept_difference(card_kept, cpu_kept, scores, nms_boxes, test_cfg):
     pre_max = int(test_cfg["nms"]["nms_pre_max_size"])
     if len(scores) > pre_max:
         edges.append(float(torch.sort(scores, descending=True).values[pre_max - 1]))
+    # the post-NMS cut: a side's last kept score, where it filled all its slots
+    post_max = int(test_cfg["nms"]["nms_post_max_size"])
+    last = {side: float(scores[k].min()) if len(k) == post_max else None
+            for side, k in (("card", card_kept), ("cpu", cpu_kept))}
     kept = sorted(a | b)
     iou = boxes_iou_bev(nms_boxes[diff], nms_boxes[kept]).cpu()  # (diff, kept)
     s = scores.cpu()
@@ -1024,8 +1169,11 @@ def explain_kept_difference(card_kept, cpu_kept, scores, nms_boxes, test_cfg):
         others = torch.tensor([k != c for k in kept])
         near = (iou[i] - thr).abs() <= IOU_EPS
         swap = (iou[i] > thr - IOU_EPS) & ((s[kept] - s[c]).abs() <= SCORE_EPS)
+        other_cut = last["cpu" if c in a else "card"]  # the slot it took or lost
         if any(abs(float(s[c]) - e) <= SCORE_EPS for e in edges):
             reasons[c] = "score"
+        elif other_cut is not None and abs(float(s[c]) - other_cut) <= SCORE_EPS:
+            reasons[c] = "post-cut"
         elif (near & others).any():
             reasons[c] = "iou"
         elif (swap & others).any():
@@ -1253,10 +1401,18 @@ def main() -> int:
     parser.add_argument("--noise-probe", type=int, default=0, metavar="STATES",
                         help="build, then run only the noise-floor probe over STATES "
                              "training states (see noise_probe)")
+    parser.add_argument("--library-times", action="store_true",
+                        help="only time phase 5's cuDNN calls in benchmark mode and print "
+                             "them as one JSON line (phase 5 runs this in a child process)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
+    if args.library_times:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(json.dumps(library_times(torch.device("cuda"))))
+        return 0
     from tdal_torch.ops import fused_pointnet as fp
     from tdal_torch.ops.build import kernels
 
@@ -1281,6 +1437,10 @@ def main() -> int:
     spills = sum(int(w) for w in re.findall(r"(\d+) bytes spill stores", lib.build_log))
     log(f"  ptxas: {len(regs)} kernels, at most {max(regs)} registers a thread, "
         f"{spills} bytes of spill stores in all")
+    for r in conv_build_report(lib.build_log, lib):
+        log(f"    {r['kernel']}: {r['registers']} registers, {r['dynamic_smem']} B dynamic + "
+            f"{r['static_smem']} B static shared memory, spills {r['spill_stores']} B stored / "
+            f"{r['spill_loads']} B loaded")
     if args.noise_probe:
         log("noise-floor probe")
         print(json.dumps(noise_probe(device, args.noise_probe)))

@@ -7,10 +7,11 @@ plain C interface, ``build/tdal_torch_kernels/libtdal_torch_kernels.so`` (listed
 ``ctypes``. The sources include no PyTorch header, so the build takes seconds. The
 returned object has one launcher per kernel taking tensors (``seg_encoder``,
 ``seg_decoder``, ``conv3x3_fwd_stats``, ``conv3x3_fwd``, ``conv3x3_wgrad``,
-``conv3x3_dgrad_act``) and a few geometry queries; each launcher runs on PyTorch's
-current stream and checks the launch with ``tdal_last_error()`` right after it. ``build_log`` keeps ``nvcc``'s
-``-Xptxas -v`` report (registers, shared memory, spills per kernel). Importing this
-module builds nothing.
+``conv3x3_dgrad_act``) and a few geometry queries (tiles, wgrad chunks, shared
+memory); each launcher runs on PyTorch's current stream and checks the launch with
+``tdal_last_error()`` right after it. ``build_log`` keeps ``nvcc``'s ``-Xptxas -v``
+report (registers, static shared memory, spills per kernel). Importing this module
+builds nothing.
 """
 
 from __future__ import annotations
@@ -82,6 +83,7 @@ class _Kernels:
             ("tdal_seg_decoder", [P, P, I, I, P, P, P, P, P, I, P], None),
             ("tdal_conv3x3_tiles", [I, I], I),
             ("tdal_conv3x3_wgrad_chunks", [I, I], I),
+            ("tdal_conv3x3_smem", [I, I], I),
             ("tdal_conv3x3_fwd_stats", [P, P, I, I, I, I, I, P, P, I, P, P, P, P, I, P],
              None),
             ("tdal_conv3x3_fwd", [P, P, I, I, I, I, I, P, P, I, P, I, P], None),
@@ -150,6 +152,10 @@ class _Kernels:
 
     def conv3x3_wgrad_chunks(self, C: int, Co: int) -> int:
         return self._lib.tdal_conv3x3_wgrad_chunks(C, Co)
+
+    def conv3x3_smem(self, wgrad: bool, bf16: bool) -> int:
+        """Dynamic shared memory of one block of the conv or the wgrad kernel, bytes."""
+        return self._lib.tdal_conv3x3_smem(int(wgrad), int(bf16))
 
     def conv3x3_fwd_stats(self, x, w, in_scale, in_shift, in_act: bool, bias, y, partial,
                           stats):

@@ -41,7 +41,7 @@ launches = {"conv3x3_fwd_stats": 0, "conv3x3_fwd": 0, "conv3x3_wgrad": 0,
             "conv3x3_dgrad_act": 0}
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_WGRAD_BLOCKS_PER_SM = 4  # target resident wgrad blocks: a few on each SM
+_WGRAD_BLOCKS_PER_SM = 4  # wgrad blocks per SM over the grid: one resident, four waves
 
 
 # ---------------------------------------------------------------------------
@@ -187,6 +187,14 @@ def conv3x3_fwd(x, w, shift, scale=None, relu: bool = False):
     return y
 
 
+def _wgrad_splits(n_tiles: int, chunks: int, sms: int) -> int:
+    """Splits of the wgrad's pixel tiles: about ``_WGRAD_BLOCKS_PER_SM`` blocks per SM
+    over the grid, rounded down, so that the last of the waves of one resident block
+    per SM is nearly full (rounding up left 2 of 132 SMs busy in a fifth wave at the
+    head branch's 10 channel chunks)."""
+    return max(1, min(n_tiles, _WGRAD_BLOCKS_PER_SM * sms // chunks))
+
+
 def conv3x3_wgrad(x, gy, in_scale, in_shift, in_act: bool):
     """K5 (``in_act``) / K6: dw (3, 3, C, Co) f32."""
     if x.device.type == "cpu":
@@ -201,9 +209,8 @@ def conv3x3_wgrad(x, gy, in_scale, in_shift, in_act: bool):
     from tdal_torch.ops.build import kernels
 
     lib = kernels()
-    n_tiles = B * lib.conv3x3_tiles(H, W)
-    blocks = _WGRAD_BLOCKS_PER_SM * torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = max(1, min(n_tiles, -(-blocks // lib.conv3x3_wgrad_chunks(C, Co))))
+    splits = _wgrad_splits(B * lib.conv3x3_tiles(H, W), lib.conv3x3_wgrad_chunks(C, Co),
+                           torch.cuda.get_device_properties(dev).multi_processor_count)
     partial = torch.empty(splits, 3, 3, C, Co, device=dev, dtype=torch.float32)
     dw = torch.empty(3, 3, C, Co, device=dev, dtype=torch.float32)
     with torch.cuda.device(dev):

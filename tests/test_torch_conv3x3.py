@@ -248,3 +248,78 @@ def test_conv3x3_module_matches_pallas_conv3x3():
     _close(xt.grad.numpy(), gx, 1e-5, 1e-4)
     _close(mod.weight.grad.permute(2, 3, 1, 0).numpy(), gp["kernel"], 1e-5, 1e-4)
     _close(mod.bias.grad.numpy(), gp["bias"], 1e-5, 1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Split TF32 ("3xTF32"), the f32 products of the CUDA kernels, emulated on the CPU
+# ---------------------------------------------------------------------------
+
+CONV_TOL_F32 = 1e-5  # the f32 tolerance that holds the kernels to their twins on the card
+
+
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    """f32 -> the nearest TF32 value (10 explicit mantissa bits), ties away from zero,
+    as ``cvt.rna.tf32.f32``: add half of the 13 dropped bits to the magnitude, then
+    clear them."""
+    bits = a.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_truncated(a: torch.Tensor) -> torch.Tensor:
+    """f32 -> TF32 by clearing the 13 low mantissa bits (toward zero): the kernels'
+    split, and what the tensor core reads of an f32 operand."""
+    return (a.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+# hi = tf32(a), lo = tf32(a - hi): rounded to nearest, and as the kernels split (hi
+# truncated, the exact remainder read by the tensor core as a truncated TF32)
+SPLITS = {"rna": _tf32, "truncate": _tf32_truncated}
+
+
+def _mm_3xtf32(a, b, split):
+    """a @ b with each operand split hi + lo and the products hi*hi + hi*lo + lo*hi, in
+    f32 (a product of two TF32 values is exact in f32)."""
+    tf32 = SPLITS[split]
+    ah, bh = tf32(a), tf32(b)
+    al, bl = tf32(a - ah), tf32(b - bh)
+    return ah @ bl + al @ bh + ah @ bh
+
+
+def _rel(got, ref):
+    return float((got.double() - ref).abs().max()) / max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("split", list(SPLITS))
+@pytest.mark.parametrize("c", [64, 128, 256, 384])
+def test_split_tf32_holds_the_f32_tolerance_on_conv_sums(c, split):
+    """The conv's dot products (K3/K4/K7: 9*C terms, x ~ N(0, 1), w ~ N(0, 1/(9C))):
+    3xTF32 stays within the f32 tolerance of the float64 value and of the f32 product,
+    and one-pass TF32 (the control) does not."""
+    rng = np.random.default_rng(c)
+    x = torch.from_numpy(rng.normal(size=(256, 9 * c)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(9 * c, 64)) / (3 * np.sqrt(c))).astype(np.float32))
+    ref = x.double() @ w.double()
+    got = _mm_3xtf32(x, w, split)
+    assert _rel(got, ref) <= CONV_TOL_F32
+    assert _rel(got, (x @ w).double()) <= CONV_TOL_F32
+    assert _rel(_tf32(x) @ _tf32(w), ref) > CONV_TOL_F32
+
+
+@pytest.mark.parametrize("split", list(SPLITS))
+def test_split_tf32_holds_the_f32_tolerance_on_a_wgrad(split):
+    """The wgrad's dot products over 2 x 224 x 224 = 100352 pixels (K5/K6 on the
+    activated input): the same three checks against the f32 twin and float64."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, 224, 224, 4)).astype(np.float32)
+    gy = torch.from_numpy(rng.normal(size=(2, 224, 224, 8)).astype(np.float32))
+    s = torch.from_numpy(rng.uniform(0.5, 2.0, 4).astype(np.float32))
+    t = torch.from_numpy(rng.normal(size=4).astype(np.float32))
+    act = cv._activate(torch.from_numpy(x), s, t, True)
+    g = gy.reshape(-1, 8)
+    taps = [tap.reshape(-1, 4).t().contiguous() for tap in cv._taps(act)]
+    ref = torch.stack([tap.double() @ g.double() for tap in taps])
+    got = torch.stack([_mm_3xtf32(tap, g, split) for tap in taps])
+    twin = cv.conv3x3_wgrad_plain(torch.from_numpy(x), gy, s, t, True).reshape(9, 4, 8)
+    assert _rel(got, ref) <= CONV_TOL_F32
+    assert _rel(got, twin.double()) <= CONV_TOL_F32
+    assert _rel(torch.stack([_tf32(tap) @ _tf32(g) for tap in taps]), ref) > CONV_TOL_F32

@@ -426,8 +426,9 @@ def test_train_detector_validates_every_epoch(tiny, tmp_path):
 
 def test_phase7_check_explains_only_knife_edges(tiny):
     """chip_smoke's phase-7 rule: a candidate kept on one side only must sit on a knife
-    edge (score at the threshold, an overlapping box's score within reach, or a cascade
-    from such a candidate); any other difference is unexplained. And the whole check
+    edge (score at the threshold, a tie for the last slot of a side that filled all its
+    slots, an overlapping box's score within reach, or a cascade from such a candidate);
+    any other difference is unexplained. And the whole check
     passes a model against its own CPU copy."""
     import chip_smoke
 
@@ -446,6 +447,18 @@ def test_phase7_check_explains_only_knife_edges(tiny):
     assert explain([1, 2], [0, 2], [0.9, 0.89995, 0.5, 0.4, 0.3]) == ({"order": 2}, [])
     assert explain([0, 2, 3], [0, 2, 4], [0.9, 0.8, 0.5, 0.10005, 0.3]) == (
         {"score": 1, "cascade": 1}, [])
+    # the post-NMS cut: both sides fill their 3 slots; a tie for the last slot between
+    # two far-apart boxes is a knife edge, a clear score gap is not
+    apart = torch.tensor([[20.0 * i, 0, 0, 4, 2, 1.5, 0] for i in range(4)])
+    full = dict(cfg, nms=dict(cfg["nms"], nms_post_max_size=3))
+
+    def explain_full(card, cpu, scores):
+        return chip_smoke.explain_kept_difference(torch.tensor(card), torch.tensor(cpu),
+                                                  torch.tensor(scores), apart, full)
+
+    assert explain_full([0, 1, 2], [0, 1, 3], [0.9, 0.8, 0.5, 0.50005]) == (
+        {"post-cut": 2}, [])
+    assert explain_full([0, 1, 2], [0, 1, 3], [0.9, 0.8, 0.5, 0.45]) == ({}, [2, 3])
 
     pts = torch.from_numpy(np.stack([tiny["ds"][i]["points"] for i in range(2)]))
     out = chip_smoke.check_infer_against_cpu(tiny["model"], pts, tiny["test_cfg"])

@@ -143,8 +143,12 @@ def _conv_inputs(cuda, b, h, w, c, co, dtype, seed=0):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("in_act", [False, True])
+# (B, H, W, C, Co): ragged channel counts (5->7 and 33->130 take the element copies);
+# C = Co = 1; 384->64, many K slices at a small image; an image whose H and W are not
+# multiples of the 8x16 block tile, with the 16-byte copies
 @pytest.mark.parametrize("shape", [(2, 8, 9, 5, 7), (1, 37, 41, 20, 70), (2, 32, 48, 64, 64),
-                                   (1, 17, 20, 33, 130)])
+                                   (1, 17, 20, 33, 130), (2, 5, 7, 1, 1),
+                                   (1, 12, 20, 384, 64), (2, 11, 35, 64, 64)])
 def test_conv_kernels_match_twins(cuda, shape, in_act, dtype):
     x, w, b, s, t, gy = _conv_inputs(cuda, *shape, dtype)
     tol_y, tol_acc = CONV_TOL[dtype]
