@@ -6,14 +6,20 @@ nothing of JAX or of ``tdal``, and exits non-zero on any failure. Phases:
 
 1. the device: torch's name for it and nvidia-smi's name and power limit;
    TF32 off for every reference product;
-2. the kernels' build, timed, and each conv and wgrad kernel instantiation's registers,
-   shared memory and spills (``-Xptxas -v``);
+2. the kernels' build, timed, and each kernel instantiation's registers, shared memory
+   and spills (``-Xptxas -v``); for the K1/K2 kernels also the HGMMA (wgmma) and HMMA
+   (mma.sync) instructions in their SASS (``cuobjdump -sass -fun`` on those kernels of
+   the built library): K1's and K2's main kernels and K2's gproj must hold HGMMA;
 3. K1 (``fused_seg_encoder``) and K2 (``fused_seg_decoder``) against their plain
    twins at the labelers' production shapes (static B=64 N=4096 Cin=3, dynamic
    B=64 N=5120 Cin=4), in both operand modes, with kernel and twin times (CUDA
-   events, warm, median of 20 launches) and each kernel's bound. Each mode's error
-   is also held against the mode gap (the other mode's kernel against this mode's
-   twin), so a kernel that ignored the operand mode fails;
+   events, warm, median of 20 calls of the wrapper on weights packed once, as
+   ``PointNetSeg`` calls it), the packing's time, each kernel's bound and its share of
+   it, the hand-written kernels alone (their launchers, 20 back to back) and, for K2,
+   its per-set gproj kernel alone; beside them, as text, the recorded times of the
+   f32-FMA CUDA-core kernels that came before (``FMA_KERNEL_MS``, not measured here).
+   Each mode's error is also held against the mode gap (the other mode's kernel
+   against this mode's twin), so a kernel that ignored the operand mode fails;
 4. stages 2-6 end to end on a synthetic segment (20 frames, 10 static + 10
    dynamic objects, 30000 background points, 256 points per object) with
    detections fabricated from its GT and fresh-init labelers from a seeded
@@ -63,7 +69,8 @@ nothing of JAX or of ``tdal``, and exits non-zero on any failure. Phases:
    edge, counted and printed); ``evaluate_detector``'s AP/APH on the split;
 8. one line ``{"kernels": [...]}`` (K1, K2, K3, K4, K5/K6, K7, and K4 again as the
    benchmark prototype's function);
-9. the last line ``{"ok": true, "device": {...}}``.
+9. the last line ``{"ok": true, "device": {...}}``. The seconds each phase took are
+   printed before the ``kernels`` line.
 
 ``--noise-probe STATES`` builds and then runs only ``noise_probe``: on the card, how
 often phase 6's comparison would fail a step that differs by rounding alone.
@@ -115,6 +122,17 @@ REPLACES = {
 }
 SOURCE = "tdal_torch/ops/csrc/fused_pointnet.cu"
 
+# The recorded times (ms) of the f32-FMA CUDA-core kernels that K1 and K2 were before
+# they moved to the tensor cores, by case, on an NVIDIA H100 80GB HBM3 at 700.00 W
+# (PERF.md section 6); printed beside phase 3's times as text, never as this run's
+# numbers
+FMA_KERNEL_MS = {
+    "fused_seg_encoder": {"static f32": 2.843, "static bf16": 2.821,
+                          "dynamic f32": 3.401, "dynamic bf16": 3.483},
+    "fused_seg_decoder": {"static f32": 6.307, "static bf16": 6.583,
+                          "dynamic f32": 7.825, "dynamic bf16": 8.142},
+}
+
 ENC_WIDTHS = (64, 64, 64, 128, 1024)
 DEC_WIDTHS = (512, 256, 128, 128, 2)
 
@@ -142,15 +160,73 @@ def conv_build_report(build_log: str, lib) -> list:
         name = (f"{kind}<{'bf16' if bf16 else 'f32'}, in_act={in_act}"
                 + (f", {_EPILOGUES[int(epi)]}" if epi is not None else "") + f", vec={vec}>")
 
-        def num(pattern):
-            m = re.search(pattern, chunk)
-            return int(m.group(1)) if m else 0
+        rows.append(dict(kernel=name, **ptxas_numbers(chunk),
+                         dynamic_smem=lib.conv3x3_smem(kind == "wgrad_kernel", bf16)))
+    return rows
 
-        rows.append(dict(kernel=name, registers=num(r"Used (\d+) registers"),
-                         static_smem=num(r"(\d+) bytes smem"),
-                         dynamic_smem=lib.conv3x3_smem(kind == "wgrad_kernel", bf16),
-                         spill_stores=num(r"(\d+) bytes spill stores"),
-                         spill_loads=num(r"(\d+) bytes spill loads")))
+
+def ptxas_numbers(chunk: str) -> dict:
+    """Registers, static shared memory, stack and spill bytes of one kernel's entry in
+    the ``-Xptxas -v`` report."""
+
+    def num(pattern):
+        m = re.search(pattern, chunk)
+        return int(m.group(1)) if m else 0
+
+    return dict(registers=num(r"Used (\d+) registers"), static_smem=num(r"(\d+) bytes smem"),
+                stack=num(r"(\d+) bytes stack frame"),
+                spill_stores=num(r"(\d+) bytes spill stores"),
+                spill_loads=num(r"(\d+) bytes spill loads"))
+
+
+_SEG_SMEM = {"seg_encoder_kernel": 0, "seg_decoder_kernel": 1, "seg_decoder_gproj_kernel": 2}
+_SEG_ENTRY = re.compile(r"(seg_encoder_kernel|seg_decoder_kernel|seg_decoder_gproj_kernel)"
+                        r"ILb([01])E|(seg_encoder_reduce_kernel)")
+
+
+def sass_mma_counts(names) -> dict:
+    """HGMMA (wgmma) and HMMA (mma.sync) instructions in the SASS of the kernels
+    ``names`` (mangled) in the built library, from ``cuobjdump -sass -fun``."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from tdal_torch.ops.build import BUILD_DIR
+
+    sass = subprocess.run(
+        [str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass", "-fun", ",".join(names),
+         str(BUILD_DIR / "libtdal_torch_kernels.so")],
+        capture_output=True, text=True, check=True, timeout=300,
+    ).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn is not None:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\.", line):
+                    counts[fn][op] += 1
+    return counts
+
+
+def seg_build_report(build_log: str, lib) -> list:
+    """Registers, shared memory, spills and tensor-core instructions of every
+    ``fused_pointnet.cu`` kernel instantiation."""
+    chunks = {}
+    for chunk in build_log.split("Compiling entry function '")[1:]:
+        mangled = chunk.split("'", 1)[0]
+        if _SEG_ENTRY.search(mangled):
+            chunks[mangled] = chunk
+    sass = sass_mma_counts(list(chunks))
+    rows = []
+    for mangled, chunk in chunks.items():
+        kind, bf16, other = _SEG_ENTRY.search(mangled).groups()
+        name = other or f"{kind}<{'bf16' if bf16 == '1' else 'f32'}>"
+
+        mma = sass.get(mangled, {"HGMMA": 0, "HMMA": 0})
+        rows.append(dict(kernel=name, **ptxas_numbers(chunk),
+                         dynamic_smem=lib.seg_smem(_SEG_SMEM[kind]) if kind else 0,
+                         hgmma=mma["HGMMA"], hmma=mma["HMMA"]))
     return rows
 
 
@@ -169,6 +245,22 @@ def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def time_back_to_back(fn, reps: int = 20, warm: int = 3) -> float:
+    """Device time of one call, by CUDA events around ``reps`` calls in a row, so that
+    the host's work for one call overlaps the device's for the one before."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def encoder_work(b, n, cin):
@@ -226,8 +318,10 @@ def phase_kernels(device) -> dict:
     RMS error of the same kernel run in the other mode, on the same inputs, against
     that twin. So a kernel that ignored the operand mode would fail."""
     from tdal_torch.ops import fused_pointnet as fp
+    from tdal_torch.ops.build import kernels
     from tdal_torch.pipeline.factories import random_pointnet_seg
 
+    lib = kernels()
     results = {"fused_seg_encoder": {}, "fused_seg_decoder": {}}
     failures = []
     for shape_name, (b, n, cin) in SHAPES.items():
@@ -236,42 +330,78 @@ def phase_kernels(device) -> dict:
         with torch.inference_mode():
             folded = fp.fold_pointnet_seg_params(seg)
             enc_w, enc_b, dec = folded[0], folded[1], folded[2:]
-            enc = {m: fp.fused_seg_encoder(x, enc_w, enc_b, m) for m in (False, True)}
+            streams = {m: fp.seg_weight_streams(folded, m) for m in (False, True)}
+            enc = {m: fp.fused_seg_encoder(x, enc_w, enc_b, m, streams[m][0])
+                   for m in (False, True)}
             for bf16 in (False, True):
                 mode = "bf16" if bf16 else "f32"
                 skip, gmax = enc[bf16]
-                logits = {m: fp.fused_seg_decoder(skip, gmax, *dec, m) for m in (False, True)}
+                logits = {m: fp.fused_seg_decoder(skip, gmax, *dec, m, streams[m][1])
+                          for m in (False, True)}
+                gproj = torch.empty(b, DEC_WIDTHS[0], device=device)
+                out_s = torch.empty(b, n, 2, device=device)
+                skip_s, gmax_s = torch.empty_like(skip), torch.empty_like(gmax)
+                partial_s = torch.empty(b, -(-n // lib.encoder_tile()), ENC_WIDTHS[-1],
+                                        device=device)
                 torch.cuda.synchronize()
                 skip_t, gmax_t = fp.fused_seg_encoder_plain(x, enc_w, enc_b, bf16)
                 logits_t = fp.fused_seg_decoder_plain(skip, gmax, *dec, bf16)
                 checks = {
                     "fused_seg_encoder": (compare(enc[bf16], enc[not bf16], (skip_t, gmax_t)),
-                                          lambda: fp.fused_seg_encoder(x, enc_w, enc_b, bf16),
+                                          lambda: fp.fused_seg_encoder(x, enc_w, enc_b, bf16,
+                                                                       streams[bf16][0]),
                                           lambda: fp.fused_seg_encoder_plain(x, enc_w, enc_b, bf16),
                                           encoder_work(b, n, cin)),
                     "fused_seg_decoder": (compare([logits[bf16]], [logits[not bf16]], [logits_t]),
-                                          lambda: fp.fused_seg_decoder(skip, gmax, *dec, bf16),
+                                          lambda: fp.fused_seg_decoder(skip, gmax, *dec, bf16,
+                                                                       streams[bf16][1]),
                                           lambda: fp.fused_seg_decoder_plain(skip, gmax, *dec, bf16),
                                           decoder_work(b, n)),
                 }
                 del skip_t, gmax_t, logits_t, logits
                 for name, (err, kernel, plain, work) in checks.items():
                     ms, plain_ms = time_ms(kernel), time_ms(plain)
+                    decoder = name == "fused_seg_decoder"
+                    ws = dec[0] if decoder else enc_w
                     bound_ms, bound_by = bound(work, bf16)
+                    case = f"{shape_name} {mode}"
                     r = dict(**err, tol=TOL[bf16], ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, gflop=work[0] / 1e9, tflops=work[0] / ms / 1e9)
-                    results[name][f"{shape_name} {mode}"] = r
+                             bound_by=bound_by, gflop=work[0] / 1e9, tflops=work[0] / ms / 1e9,
+                             bound_share=bound_ms / ms)
+                    r["pack_ms"] = time_ms(lambda: fp.weight_stream(decoder, ws, bf16))
+                    # the hand-written kernels alone (no host work): their launchers
+                    # back to back
+                    stream = streams[bf16][decoder]
+                    if not decoder:
+                        r["kernel_ms"] = time_back_to_back(lambda: lib.seg_encoder(
+                            x, enc_w[0], list(enc_b), stream, skip_s, partial_s, gmax_s, bf16))
+                    else:
+                        r["kernel_ms"] = time_back_to_back(lambda: lib.seg_decoder(
+                            skip, gmax, list(dec[1]), stream, dec[2], dec[3], gproj, out_s,
+                            bf16))
+                        r["gproj_ms"] = time_back_to_back(lambda: lib.seg_decoder_gproj(
+                            gmax, stream, dec[1][0], gproj, bf16))
+                    r["kernel_bound_share"] = bound_ms / r["kernel_ms"]
+                    extra = (f"; the kernels alone {r['kernel_ms']:.3f} ms "
+                             f"({100 * r['kernel_bound_share']:.0f}% of the bound), packing "
+                             f"the weights {r['pack_ms']:.4f} ms")
+                    if decoder:
+                        extra += (f", of the kernels gproj {r['gproj_ms']:.4f} ms "
+                                  f"({100 * r['gproj_ms'] / r['kernel_ms']:.1f}%)")
+                    results[name][case] = r
                     log(f"  {name} {shape_name} B={b} N={n} Cin={cin} {mode}: "
                         f"max abs err {err['max_abs_err']:.3e}, rel {err['max_rel_err']:.3e} "
                         f"(tol {TOL[bf16]:.0e}), RMS {err['rms_err']:.3e}; the other mode's "
                         f"kernel against this twin: rel {err['gap_max_rel']:.3e}, "
                         f"RMS {err['gap_rms']:.3e}; kernel {ms:.3f} ms "
-                        f"({r['tflops']:.1f} TFLOP/s), twin {plain_ms:.3f} ms, "
-                        f"bound {bound_ms:.3f} ms ({bound_by})")
+                        f"({r['tflops']:.1f} TFLOP/s, {100 * r['bound_share']:.0f}% of the "
+                        f"bound; the earlier f32-FMA kernel's recorded "
+                        f"{FMA_KERNEL_MS[name][case]:.3f} ms), twin {plain_ms:.3f} ms, "
+                        f"bound {bound_ms:.3f} ms ({bound_by}){extra}")
                     if not (err["max_rel_err"] <= TOL[bf16]
                             and MODE_MARGIN * err["rms_err"] <= err["gap_rms"]):
                         failures.append(f"{name} {shape_name} {mode}: {json.dumps(err)}")
-        del seg, x, enc
+        del seg, x, enc, streams
         torch.cuda.empty_cache()
     if failures:
         raise AssertionError("kernels disagree with their twins: " + "; ".join(failures))
@@ -1417,6 +1547,14 @@ def main() -> int:
     from tdal_torch.ops.build import kernels
 
     # phase 1: the device
+    seconds, t_phase = {}, time.perf_counter()
+
+    def lap(phase: int):
+        """Seconds since the previous phase ended, kept under the phase's number."""
+        nonlocal t_phase
+        now = time.perf_counter()
+        seconds[phase], t_phase = round(now - t_phase, 1), now
+
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1437,6 +1575,20 @@ def main() -> int:
     spills = sum(int(w) for w in re.findall(r"(\d+) bytes spill stores", lib.build_log))
     log(f"  ptxas: {len(regs)} kernels, at most {max(regs)} registers a thread, "
         f"{spills} bytes of spill stores in all")
+    t0 = time.perf_counter()
+    seg_rows = seg_build_report(lib.build_log, lib)
+    log(f"  K1/K2 build report, cuobjdump of their SASS included, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for r in seg_rows:
+        log(f"    {r['kernel']}: {r['registers']} registers, {r['dynamic_smem']} B dynamic + "
+            f"{r['static_smem']} B static shared memory, stack {r['stack']} B, spills "
+            f"{r['spill_stores']} B stored / {r['spill_loads']} B loaded; SASS: {r['hgmma']} "
+            f"HGMMA, {r['hmma']} HMMA")
+    no_wgmma = [r["kernel"] for r in seg_rows
+                if r["kernel"] != "seg_encoder_reduce_kernel" and r["hgmma"] == 0]
+    if len(seg_rows) != 7 or no_wgmma:
+        raise AssertionError(f"K1/K2 build report: {len(seg_rows)} kernels (7 expected), "
+                             f"without HGMMA: {no_wgmma}")
     for r in conv_build_report(lib.build_log, lib):
         log(f"    {r['kernel']}: {r['registers']} registers, {r['dynamic_smem']} B dynamic + "
             f"{r['static_smem']} B static shared memory, spills {r['spill_stores']} B stored / "
@@ -1446,24 +1598,31 @@ def main() -> int:
         print(json.dumps(noise_probe(device, args.noise_probe)))
         return 0
 
+    lap(2)
+
     log("phase 3 kernels against their twins")
     kres = phase_kernels(device)
+    lap(3)
     log(f"  launches in phase 3 (checks and timing, not counted below): {dict(fp.launches)}")
 
     log("phase 4 stages 2-6 end to end")
     chain = phase_chain(device)
+    lap(4)
 
     log("phase 5 conv kernels against their twins")
     from tdal_torch.ops import conv3x3 as cv
 
     cres = phase_conv(device)
+    lap(5)
     log(f"  launches in phase 5 (checks and timing, not counted below): {dict(cv.launches)}")
 
     log("phase 6 PointPillars training on the Waymo config")
     train, pp_cfg, pp_model = phase_train(device)
+    lap(6)
 
     log("phase 7 PointPillars inference on the Waymo config")
     infer = phase_infer(device, pp_cfg, pp_model)
+    lap(7)
 
     entries = []
     for name, by_case in kres.items():
@@ -1473,6 +1632,7 @@ def main() -> int:
             launches=chain["launches"][name], max_abs_err=main_case["max_abs_err"],
             ms=main_case["ms"], plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
             bound_by=main_case["bound_by"], library_ms=None,
+            kernel_ms=main_case["kernel_ms"],
             shape="static B=64 N=4096 Cin=3, f32 operands", cases=by_case,
         ))
     for name, by_case in cres.items():
@@ -1508,6 +1668,7 @@ def main() -> int:
     train_summary = {k: v for k, v in train.items() if k != "launches"}
     log(f"  training summary: {json.dumps(train_summary)}")
     log(f"  inference summary: {json.dumps(infer)}")
+    log(f"  seconds by phase (phase 2 from the start): {json.dumps(seconds)}")
     log(f"card: {kind} | {smi}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -12,8 +12,10 @@ variance); ``MaskedBatchNorm`` keeps padded rows out of its two-pass statistics.
 
 ``FusedConvBN`` in train mode runs ``tdal_torch.ops.conv3x3.conv3x3_act_stats``: on a
 CUDA tensor the conv, its output moments and the producer's normalise + ReLU
-(``pre``) are the K3 kernel, and its backward is K4 + K5. In eval mode it is a cuDNN
-conv with the running statistics folded into one affine.
+(``pre``) are the K3 kernel. Its backward is K7 (the dgrad through ``pre``'s ReLU
+and affine) + K5 where ``pre`` is given, and K4 (the plain dgrad) + K6 where it is
+not. In eval mode it is a cuDNN conv with the running statistics folded into one
+affine.
 """
 
 from __future__ import annotations

@@ -5,7 +5,8 @@ shared-MLP layer is an ``nn.Linear`` over the last axis, followed by
 ``nn.BatchNorm1d`` (eps 1e-5) over all other axes, then ReLU.
 
 In eval mode on a CUDA tensor, ``PointNetSeg`` runs folded BN -> K1 -> K2
-(``tdal_torch.ops.fused_pointnet``); everywhere else it runs its layers.
+(``tdal_torch.ops.fused_pointnet``) on weights folded and packed once per state of its
+parameters and buffers; everywhere else it runs its layers.
 """
 
 from __future__ import annotations
@@ -23,7 +24,11 @@ from tdal_torch.core.codecs import (
     class2size,
     mean_size,
 )
-from tdal_torch.ops.fused_pointnet import fold_pointnet_seg_params, pointnet_seg_logits
+from tdal_torch.ops.fused_pointnet import (
+    fold_pointnet_seg_params,
+    pointnet_seg_logits,
+    seg_weight_streams,
+)
 
 BOX_PRED_DIM = 3 + NUM_HEADING_BIN * 2 + NUM_SIZE_CLUSTER * 4  # 59
 
@@ -66,10 +71,31 @@ class PointNetSeg(nn.Module):
         self.enc2 = SharedMLP(64, [64, 128, 1024])
         self.dec = SharedMLP(64 + 1024, [512, 256, 128, 128])
         self.logits = nn.Linear(128, 2)
+        self._packed_key, self._packed = None, None
+
+    def packed(self):
+        """(folded weights, K1's and K2's f32-operand weight streams), made again only
+        when a parameter or buffer was replaced or written in place (its device, address
+        or version counter changed; a write through ``.data`` bypasses the counter) since
+        the last call. Weights made under ``torch.inference_mode`` keep no version
+        counter and are packed on every call."""
+        tensors = [*self.parameters(), *self.buffers()]
+        key = None
+        if not any(t.is_inference() for t in tensors):
+            key = tuple((t.device, t.data_ptr(), t._version) for t in tensors)
+        if key is None or key != self._packed_key:
+            with torch.no_grad():
+                folded = fold_pointnet_seg_params(self)
+                # the cache holds the tensors it was made from, so that no new tensor
+                # can take one of their addresses while it is kept
+                self._packed_key = key
+                self._packed = (folded, seg_weight_streams(folded), [t.detach() for t in tensors])
+        return self._packed[:2]
 
     def forward(self, pts):
         if not self.training and pts.is_cuda:
-            return pointnet_seg_logits(fold_pointnet_seg_params(self), pts)
+            folded, streams = self.packed()
+            return pointnet_seg_logits(folded, pts, streams=streams)
         enc1 = self.enc1(pts)
         enc2 = self.enc2(enc1)
         global_feat = enc2.amax(dim=1, keepdim=True).expand(-1, pts.shape[1], -1)

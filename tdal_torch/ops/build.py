@@ -6,12 +6,12 @@ plain C interface, ``build/tdal_torch_kernels/libtdal_torch_kernels.so`` (listed
 ``.gitignore``), the first time a process launches a kernel; it loads it with
 ``ctypes``. The sources include no PyTorch header, so the build takes seconds. The
 returned object has one launcher per kernel taking tensors (``seg_encoder``,
-``seg_decoder``, ``conv3x3_fwd_stats``, ``conv3x3_fwd``, ``conv3x3_wgrad``,
-``conv3x3_dgrad_act``) and a few geometry queries (tiles, wgrad chunks, shared
-memory); each launcher runs on PyTorch's current stream and checks the launch with
-``tdal_last_error()`` right after it. ``build_log`` keeps ``nvcc``'s ``-Xptxas -v``
-report (registers, static shared memory, spills per kernel). Importing this module
-builds nothing.
+``seg_decoder_gproj``, ``seg_decoder``, ``conv3x3_fwd_stats``, ``conv3x3_fwd``,
+``conv3x3_wgrad``, ``conv3x3_dgrad_act``) and a few geometry queries (tiles,
+weight-stream bytes, wgrad chunks, shared memory); each launcher runs on PyTorch's
+current stream and checks the launch with ``tdal_last_error()`` right after it.
+``build_log`` keeps ``nvcc``'s ``-Xptxas -v`` report (registers, static shared memory,
+spills per kernel). Importing this module builds nothing.
 """
 
 from __future__ import annotations
@@ -77,7 +77,9 @@ class _Kernels:
         for name, args, res in (
             ("tdal_last_error", [], I),
             ("tdal_encoder_tile", [], I),
-            ("tdal_seg_encoder", [P, I, I, I, P, P, P, P, I, I, P], None),
+            ("tdal_seg_stream_bytes", [I, I], I),
+            ("tdal_seg_smem", [I], I),
+            ("tdal_seg_encoder", [P, I, I, I, P, P, P, P, P, I, I, P], None),
             ("tdal_seg_encoder_reduce", [P, I, I, P, P], None),
             ("tdal_seg_decoder_gproj", [P, I, P, P, P, I, P], None),
             ("tdal_seg_decoder", [P, P, I, I, P, P, P, P, P, I, P], None),
@@ -120,30 +122,40 @@ class _Kernels:
     def encoder_tile(self) -> int:
         return self._lib.tdal_encoder_tile()
 
-    def seg_encoder(self, pts, w, b, skip, partial, gmax, bf16: bool):
+    def seg_stream_bytes(self, decoder: bool, bf16: bool) -> int:
+        """Bytes of the packed weight stream K1 (or K2) reads in that operand mode."""
+        return self._lib.tdal_seg_stream_bytes(int(decoder), int(bf16))
+
+    def seg_smem(self, which: int) -> int:
+        """Dynamic shared memory of one block of K1's main kernel (0), K2's (1) or K2's
+        gproj (2), bytes."""
+        return self._lib.tdal_seg_smem(which)
+
+    def seg_encoder(self, pts, w0, b, wstream, skip, partial, gmax, bf16: bool):
         B, N, cin = pts.shape
         n_tiles = partial.shape[1]
         s = self._stream(pts)
         self._lib.tdal_seg_encoder(
-            pts.data_ptr(), B, N, cin, self._ptr_array(w), self._ptr_array(b),
+            pts.data_ptr(), B, N, cin, w0.data_ptr(), self._ptr_array(b), wstream.data_ptr(),
             skip.data_ptr(), partial.data_ptr(), n_tiles, int(bf16), s,
         )
         self._check("seg_encoder")
         self._lib.tdal_seg_encoder_reduce(partial.data_ptr(), B, n_tiles, gmax.data_ptr(), s)
         self._check("seg_encoder_reduce")
 
-    def seg_decoder(self, skip, gmax, w, b, lw, lb, gproj, out, bf16: bool):
-        B, N, _ = skip.shape
-        s = self._stream(skip)
+    def seg_decoder_gproj(self, gmax, wstream, b0, gproj, bf16: bool):
         self._lib.tdal_seg_decoder_gproj(
-            gmax.data_ptr(), B, w[0].data_ptr(), b[0].data_ptr(), gproj.data_ptr(),
-            int(bf16), s,
+            gmax.data_ptr(), gmax.shape[0], wstream.data_ptr(), b0.data_ptr(),
+            gproj.data_ptr(), int(bf16), self._stream(gmax),
         )
         self._check("seg_decoder_gproj")
+
+    def seg_decoder(self, skip, gmax, b, wstream, lw, lb, gproj, out, bf16: bool):
+        B, N, _ = skip.shape
+        self.seg_decoder_gproj(gmax, wstream, b[0], gproj, bf16)
         self._lib.tdal_seg_decoder(
-            skip.data_ptr(), gproj.data_ptr(), B, N, self._ptr_array(w),
-            self._ptr_array(b), lw.data_ptr(), lb.data_ptr(), out.data_ptr(),
-            int(bf16), s,
+            skip.data_ptr(), gproj.data_ptr(), B, N, wstream.data_ptr(), self._ptr_array(b),
+            lw.data_ptr(), lb.data_ptr(), out.data_ptr(), int(bf16), self._stream(skip),
         )
         self._check("seg_decoder")
 

@@ -50,7 +50,8 @@ def rms_rel_err(got, ref) -> float:
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("cin,n", [(3, 1), (3, 64), (4, 100), (3, 4096), (4, 5120)])
+@pytest.mark.parametrize("cin,n", [(3, 1), (3, 64), (4, 100), (3, 127), (4, 128), (3, 129),
+                                   (4, 255), (3, 4096), (4, 5120)])
 def test_kernels_match_twins(cuda, cin, n, bf16):
     g = torch.Generator().manual_seed(n)
     x = torch.randn(3, n, cin, generator=g).to(cuda)
@@ -75,18 +76,89 @@ def test_kernels_match_twins(cuda, cin, n, bf16):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+def test_encoder_max_from_the_ragged_last_tile(cuda, bf16):
+    """N = 2 tiles + 3 points, the last 3 scaled up so that the per-set maximum of most
+    channels lies only in the ragged last tile (checked on the twin)."""
+    tile = 128
+    n = 2 * tile + 3
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(2, n, 3, generator=g)
+    x[:, 2 * tile:] *= 20.0
+    x = x.to(cuda)
+    model = random_pointnet_seg(3, seed=3).to(cuda)
+    with torch.inference_mode():
+        folded = fp.fold_pointnet_seg_params(model)
+        skip, gmax = fp.fused_seg_encoder(x, folded[0], folded[1], bf16)
+        torch.cuda.synchronize()
+        skip_t, gmax_t = fp.fused_seg_encoder_plain(x, folded[0], folded[1], bf16)
+        _, gmax_head = fp.fused_seg_encoder_plain(x[:, :2 * tile], folded[0], folded[1], bf16)
+    assert float((gmax_t > gmax_head).float().mean()) > 0.25
+    assert max_rel_err(skip, skip_t) <= TOL[bf16]
+    assert max_rel_err(gmax, gmax_t) <= TOL[bf16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("n", [1, 37, 127])
+def test_decoder_alone_below_one_tile(cuda, n, bf16):
+    """K2 on N smaller than its 128-point tile, from a skip and gmax made up here."""
+    g = torch.Generator().manual_seed(n)
+    skip = torch.relu(torch.randn(3, n, 64, generator=g)).to(cuda)
+    gmax = torch.relu(torch.randn(3, 1024, generator=g)).to(cuda)
+    model = random_pointnet_seg(4, seed=1).to(cuda)
+    with torch.inference_mode():
+        folded = fp.fold_pointnet_seg_params(model)
+        before = fp.launches["fused_seg_decoder"]
+        logits = fp.fused_seg_decoder(skip, gmax, *folded[2:], bf16)
+        torch.cuda.synchronize()
+        assert fp.launches["fused_seg_decoder"] == before + 1
+        want = fp.fused_seg_decoder_plain(skip, gmax, *folded[2:], bf16)
+    assert logits.shape == (3, n, 2)
+    assert max_rel_err(logits, want) <= TOL[bf16]
+
+
+@pytest.mark.gpu
 def test_pointnet_seg_eval_on_card_runs_the_kernels(cuda):
+    """Through the weights it packed once, and again after they changed in place."""
     model = random_pointnet_seg(3, seed=0).to(cuda)
     x = torch.randn(2, 300, 3, generator=torch.Generator().manual_seed(1)).to(cuda)
+
+    def reference():
+        folded = fp.fold_pointnet_seg_params(model)
+        skip, gmax = fp.fused_seg_encoder_plain(x, folded[0], folded[1])
+        return fp.fused_seg_decoder_plain(skip, gmax, *folded[2:])
+
     before = dict(fp.launches)
     with torch.inference_mode():
         got = model(x)
         assert fp.launches["fused_seg_encoder"] == before["fused_seg_encoder"] + 1
         assert fp.launches["fused_seg_decoder"] == before["fused_seg_decoder"] + 1
-        folded = fp.fold_pointnet_seg_params(model)
-        skip, gmax = fp.fused_seg_encoder_plain(x, folded[0], folded[1])
-        ref = fp.fused_seg_decoder_plain(skip, gmax, *folded[2:])
+        ref = reference()
     assert max_rel_err(got, ref) <= TOL[False]
+    with torch.no_grad():
+        model.dec.bn[1].running_var.mul_(16.0)
+    with torch.inference_mode():
+        changed, ref_changed = model(x), reference()
+    assert max_rel_err(changed, ref) > 100 * TOL[False]
+    assert max_rel_err(changed, ref_changed) <= TOL[False]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bf16", [False, True])
+def test_weight_streams_have_the_kernels_size(cuda, bf16):
+    """The packer's streams are the size the kernels read; a stream of another size
+    is refused before the launch."""
+    from tdal_torch.ops.build import kernels
+
+    lib = kernels()
+    folded = fp.fold_pointnet_seg_params(random_pointnet_seg(4, seed=2).to(cuda))
+    enc, dec = fp.seg_weight_streams(folded, bf16)
+    for stream, decoder in ((enc, False), (dec, True)):
+        assert stream.numel() * stream.element_size() == lib.seg_stream_bytes(decoder, bf16)
+    x = torch.randn(2, 64, 4, device=cuda)
+    with pytest.raises(RuntimeError, match="weight stream"):
+        fp.fused_seg_encoder(x, folded[0], folded[1], bf16, enc[:-8])
 
 
 @pytest.mark.gpu
