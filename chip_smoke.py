@@ -20,8 +20,9 @@ nothing of JAX or of ``tdal``, and exits non-zero on any failure. Phases:
    f32-FMA CUDA-core kernels that came before (``FMA_KERNEL_MS``, not measured here).
    Each mode's error is also held against the mode gap (the other mode's kernel
    against this mode's twin), so a kernel that ignored the operand mode fails;
-4. stages 2-6 end to end on a synthetic segment (20 frames, 10 static + 10
-   dynamic objects, 30000 background points, 256 points per object) with
+4. stages 2-6 end to end through ``tdal_torch.pipeline.offboard.label_chain`` on a
+   synthetic segment (20 frames, 10 static + 10 dynamic objects, 30000 background
+   points, 256 points per object) with
    detections fabricated from its GT and fresh-init labelers from a seeded
    ``torch.Generator``: one warm pass, then a timed pass with the launch counters
    set to 0 just before it and read just after. Both labelers must label boxes and
@@ -67,13 +68,36 @@ nothing of JAX or of ``tdal``, and exits non-zero on any failure. Phases:
    and the decode + NMS of one batch timed apart; one batch held against a CPU copy
    (decoded maps within ``MAP_TOL``; kept sets equal except candidates on a knife
    edge, counted and printed); ``evaluate_detector``'s AP/APH on the split;
-8. one line ``{"kernels": [...]}`` (K1, K2, K3, K4, K5/K6, K7, and K4 again as the
-   benchmark prototype's function);
-9. the last line ``{"ok": true, "device": {...}}``. The seconds each phase took are
+8. the offboard chain, in two parts. (a) Both labelers trained at their production
+   widths (static one-box 4096 points, 512 object points; dynamic 5 x 1024 points) on a
+   GT-fed segment of 8 scenes (160 static and 16 dynamic tracks through stages 2-4 on
+   the card) by ``train_labeler`` at batch 64 for 3 epochs (drop_last: 2 steps an
+   epoch), with the per-epoch eval through K1/K2 (its launches must equal the eval
+   batches) and the best checkpoint, then ``restore_labeler_state``,
+   ``predict_final_boxes`` and the postprocess metrics; the step alone is timed, and
+   one train step of 8 sets on the card is held against the same step on a CPU copy
+   (same weights, batch, gather noise and dropout mask; sets whose seg mask differs
+   only at knife-edge points counted and taken out; loss, BN running statistics,
+   gradients within 8x a noise floor measured on the CPU copy as phase 6 measures its
+   own, parameters after the update), and the same step with torch's unbiased running
+   variance must fail it. (b) The Waymo PP detector, from phase 6's weights, trained in
+   rounds of 45 steps (batch 4, Adam 3e-3 clipped at 35, at most 180 steps, each step
+   K3 16, K4 4, K7 12, K5/K6 16 launches) on a bus-sized segment (10 frames, 6 static
+   and 2 dynamic objects, no global augmentation noise) until the chain it feeds labels
+   a static box; then ``tdal_torch.pipeline.offboard.measure`` (a warm pass on an
+   8-frame segment, then the timed pass with the K1/K2 counters from 0): detect, track
+   (the 90th-percentile score threshold), extract (GT match at IoU 0.25), the motion
+   split and both trained labelers, with frames/s, each stage's seconds and the counts;
+   K1/K2 must launch once per predict batch;
+9. one line ``{"kernels": [...]}`` (K1, K2, K3, K4, K5/K6, K7, and K4 again as the
+   benchmark prototype's function), each kernel's ``launches`` from phase 8;
+10. the last line ``{"ok": true, "device": {...}}``. The seconds each phase took are
    printed before the ``kernels`` line.
 
 ``--noise-probe STATES`` builds and then runs only ``noise_probe``: on the card, how
 often phase 6's comparison would fail a step that differs by rounding alone.
+``--offboard-only`` builds and then runs only phase 8, from a fresh detector (seed 0)
+in place of phase 6's weights, and prints no ``kernels`` line.
 """
 
 from __future__ import annotations
@@ -85,6 +109,7 @@ import json
 import logging
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -422,72 +447,6 @@ def build_segment(root: Path):
     return infos, info_map, annos, detections, det_annos
 
 
-def run_chain(out: Path, seg, labelers, logger) -> dict:
-    """Stages 2-6 through the port's entry points, on the default device (CUDA)."""
-    from tdal_torch.data.track_datasets import (
-        DynamicTrackDataset, StaticTrackDataset, preprocess_tracks,
-    )
-    from tdal_torch.pipeline.labeler_run import (
-        build_token2idx, postprocess_dynamic, postprocess_static, predict_final_boxes,
-        sort_detections,
-    )
-    from tdal_torch.pipeline.motion_state import (
-        build_track_gt, fit_motion_classifier, split_by_prediction, track_features,
-    )
-    from tdal_torch.pipeline.track_extraction import (
-        convert_detection_to_global_box, create_pd_detection, reorganize, run_tracking,
-    )
-
-    infos, info_map, annos, detections, det_annos = seg
-    det_annos = sort_detections([dict(d, boxes_lidar=d["boxes_lidar"].copy()) for d in det_annos])
-    token2idx = build_token2idx(info_map, annos, det_annos)
-    (s_model, s_inputs, s_kind), (d_model, d_inputs, d_kind) = labelers
-    stage_s, counts, boxes = {}, {}, {}
-
-    t0 = time.perf_counter()
-    global_preds, det_results = convert_detection_to_global_box(detections, info_map, annos)
-    predictions, _ = run_tracking(global_preds, det_results, score_thresh=0.1)
-    stage_s["track"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    _, frame_track = create_pd_detection(predictions, info_map, out, tracking=True)
-    track = reorganize(frame_track)
-    stage_s["extract"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    X, y, new_track = track_features(track, build_track_gt(infos))
-    clf = fit_motion_classifier(X, y)
-    track_static, track_dynamic = split_by_prediction(new_track, clf.predict(X) if len(X) else [])
-    stage_s["motion"] = time.perf_counter() - t0
-    counts.update(tracks=len(new_track), static_tracks=len(track_static),
-                  dynamic_tracks=len(track_dynamic))
-
-    t0 = time.perf_counter()
-    ts, _ = preprocess_tracks(track_static, annos, ratio=0.0, seed=0)
-    s_ds = StaticTrackDataset(ts, annos, npoints=NPOINTS_STATIC, seed=0)
-    boxes["static"] = predict_final_boxes(s_model, s_ds, s_inputs, s_kind, PREDICT_BATCH)
-    counts["static_metrics"] = postprocess_static(ts, annos, boxes["static"], logger,
-                                                  det_annos, token2idx)
-    stage_s["static_label"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    d_ds = DynamicTrackDataset(track_dynamic, annos, npoints=NPOINTS_DYNAMIC, seed=0)
-    boxes["dynamic"] = predict_final_boxes(d_model, d_ds, d_inputs, d_kind, PREDICT_BATCH)
-    counts["dynamic_metrics"] = postprocess_dynamic(track_dynamic, annos, boxes["dynamic"],
-                                                    logger, det_annos, token2idx)
-    stage_s["dynamic_label"] = time.perf_counter() - t0
-
-    counts["static_boxes_labeled"] = len(boxes["static"])
-    counts["dynamic_boxes_labeled"] = len(boxes["dynamic"])
-    counts["predict_batches"] = sum(math.ceil(len(ds) / PREDICT_BATCH) for ds in (s_ds, d_ds))
-    datasets = {
-        "static": lambda: StaticTrackDataset(ts, annos, npoints=NPOINTS_STATIC, seed=0),
-        "dynamic": lambda: DynamicTrackDataset(track_dynamic, annos, npoints=NPOINTS_DYNAMIC,
-                                               seed=0),
-    }
-    return dict(stage_s=stage_s, counts=counts, boxes=boxes, datasets=datasets)
-
-
 def reference_check(name, model, inputs_fn, kind, make_dataset, device, n=16):
     """One batch of ``n`` sets through the labeler on the card (K1+K2) and through a
     CPU copy (plain layers): seg logits within 1e-4 of max(1, |logit|); decoded
@@ -532,23 +491,33 @@ def reference_check(name, model, inputs_fn, kind, make_dataset, device, n=16):
 
 
 def phase_chain(device) -> dict:
+    from tdal_torch.data.track_datasets import DynamicTrackDataset, StaticTrackDataset
     from tdal_torch.ops import fused_pointnet as fp
     from tdal_torch.pipeline.factories import make_labeler
+    from tdal_torch.pipeline.offboard import label_chain
 
     logger = logging.getLogger("chip_smoke")
-    labelers = (make_labeler("one_box_est", seed=0), make_labeler("dynamic", seed=1))
+    labelers = tuple((m, i, k) for m, _, i, k in (make_labeler("one_box_est", seed=0),
+                                                   make_labeler("dynamic", seed=1)))
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         t0 = time.perf_counter()
-        seg = build_segment(root)
+        infos, info_map, annos, detections, det_annos = build_segment(root)
         log(f"  segment written and detections fabricated in {time.perf_counter() - t0:.2f} s")
-        run_chain(root / "warm", seg, labelers, logger)
-        torch.cuda.synchronize()
 
+        def chain(out):
+            """Stages 2-6 through the port's driver on the default device (CUDA)."""
+            return label_chain(detections, info_map, annos, labelers, out, logger,
+                               score_thresh=0.1, npoints_static=NPOINTS_STATIC,
+                               npoints_dynamic=NPOINTS_DYNAMIC, predict_batch=PREDICT_BATCH,
+                               det_annos=det_annos)
+
+        chain(root / "warm")
+        torch.cuda.synchronize()
         for k in fp.launches:
             fp.launches[k] = 0
         t0 = time.perf_counter()
-        res = run_chain(root / "timed", seg, labelers, logger)
+        res = chain(root / "timed")
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
         launches = dict(fp.launches)
@@ -571,10 +540,12 @@ def phase_chain(device) -> dict:
 
         (s_model, s_inputs, s_kind), (d_model, d_inputs, d_kind) = labelers
         reference_check("static labeler", s_model, s_inputs, s_kind,
-                        res["datasets"]["static"], device)
+                        lambda: StaticTrackDataset(res["static_labeled"], annos,
+                                                   npoints=NPOINTS_STATIC, seed=0), device)
         reference_check("dynamic labeler", d_model, d_inputs, d_kind,
-                        res["datasets"]["dynamic"], device)
-    return dict(launches=launches, total_s=total, **res["counts"], stage_s=res["stage_s"])
+                        lambda: DynamicTrackDataset(res["track_dynamic"], annos,
+                                                    npoints=NPOINTS_DYNAMIC, seed=0), device)
+    return dict(launches=launches, total_s=total, **counts, stage_s=res["stage_s"])
 
 
 # ---------------------------------------------------------------------------
@@ -1464,6 +1435,471 @@ def phase_infer(device, cfg, trained) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the offboard chain (labeler training, then the detector-fed chain)
+# ---------------------------------------------------------------------------
+
+# (a) a GT-fed segment of 8 scenes: 160 static tracks (one sample each: 144 train, two
+# batches of 64 with drop_last) and 16 dynamic ones (160 per-frame samples)
+LABEL_SEGMENT = dict(n_scenes=8, n_frames=10, seed=3, n_static=20, n_dynamic=2,
+                     points_per_object=256, n_background=5000)
+LABEL_BATCH, LABEL_EPOCHS, LABEL_LR = 64, 3, 1e-3
+CHECK_SETS = 8  # the card-vs-CPU step: sets of the check batch, at production widths
+STAT_TOL = 1e-4  # BN running statistics, relative to the leaf's largest value
+# a seg logit within this of 0, relative to max(1, max |logit|), is a knife edge: the
+# card's and the CPU's f32 sums may put its point on either side
+SEG_KNIFE_EDGE = 1e-4
+# (b) the detector-fed chain: bus-sized objects as in tdal's real-detector test
+CHAIN_SEGMENT = dict(n_scenes=1, n_frames=10, seed=7, n_static=6, n_dynamic=2,
+                     points_per_object=384, n_background=20000, object_dims=(10.0, 2.6, 3.2))
+CHAIN_WARM_SEGMENT = dict(CHAIN_SEGMENT, n_frames=8, seed=8)
+CHAIN_ROUND_STEPS, CHAIN_MAX_STEPS = 45, 180  # detector steps per round, and the cap
+CHAIN_SCORE_THRESHOLD = 0.02  # a briefly trained detector's scores are low
+CHAIN_KW = dict(score_percentile=90, match_iou=0.25, npoints_static=NPOINTS_STATIC,
+                npoints_dynamic=NPOINTS_DYNAMIC, predict_batch=PREDICT_BATCH)
+
+
+def labeler_segment(root: Path, seg: dict):
+    """A GT-fed segment through stages 2-4 on the card: (annos, static tracks,
+    dynamic tracks), with the tracks matched to their GT."""
+    from tdal_torch.data.synthetic import fabricate_detections, make_synthetic_dataset
+    from tdal_torch.data.waymo_schema import AnnoStore, reorganize_info
+    from tdal_torch.pipeline.motion_state import (
+        build_track_gt, fit_motion_classifier, split_by_prediction, track_features,
+    )
+    from tdal_torch.pipeline.track_extraction import (
+        convert_detection_to_global_box, create_pd_detection, reorganize, run_tracking,
+    )
+
+    infos, scenes = make_synthetic_dataset(root / "segment", **seg)
+    info_map = reorganize_info(infos)
+    annos = AnnoStore(info_map)
+    detections = fabricate_detections(scenes, annos)
+    global_preds, det_results = convert_detection_to_global_box(detections, info_map, annos)
+    predictions, _ = run_tracking(global_preds, det_results, score_thresh=0.1)
+    _, frame_track = create_pd_detection(predictions, info_map, root / "track", tracking=True)
+    X, y, new_track = track_features(reorganize(frame_track), build_track_gt(infos))
+    static, dynamic = split_by_prediction(new_track, fit_motion_classifier(X, y).predict(X))
+    return annos, static, dynamic
+
+
+def labeler_step(model, loss_fn, inputs, labels, draws, device, perturb=0.0, perturb_seed=1):
+    """One train step (AdamW on the labelers' schedule) of a copy of ``model`` on
+    ``device``: (loss, gradients and the state after the update in float64 on the CPU,
+    the seg mask, the seg logits). ``perturb`` != 0 first scales every parameter by
+    1 + perturb * u, u uniform in [-1, 1] from ``perturb_seed``."""
+    from tdal_torch.runtime.schedules import adam_with_schedule, labeler_step_decay
+
+    m = copy.deepcopy(model).to(device).train()
+    if perturb:
+        gen = torch.Generator().manual_seed(perturb_seed)
+        with torch.no_grad():
+            for p in m.parameters():
+                p.mul_(1 + perturb * (2 * torch.rand(p.shape, generator=gen) - 1).to(device))
+    opt = adam_with_schedule(m.parameters(), labeler_step_decay(LABEL_LR, 1), 1e-4)
+    out = m(*(x.to(device) for x in inputs), **{k: v.to(device) for k, v in draws.items()})
+    total = loss_fn(out, {k: v.to(device) for k, v in labels.items()})["total_loss"]
+    total.backward()
+    grads = {n: p.grad.detach().cpu().double() for n, p in m.named_parameters()}
+    opt.step()
+    state = {k: v.detach().cpu().double() for k, v in m.state_dict().items()}
+    return (float(total.detach()), grads, state, out["mask"].cpu(),
+            out["logits"].detach().cpu())
+
+
+class _TorchBatchNorm(torch.nn.BatchNorm1d):
+    """torch's BatchNorm over the last axis, whose running variance is the unbiased
+    one: the control of the labelers' card-vs-CPU step check."""
+
+    def forward(self, x):
+        return super().forward(x.reshape(-1, x.shape[-1])).reshape(x.shape)
+
+
+def with_torch_batchnorm(model):
+    """A copy of ``model`` whose (B, C) stacks run ``_TorchBatchNorm`` on its weights."""
+    from tdal_torch.models.pointnet import DenseBNStack, SharedMLP
+
+    m = copy.deepcopy(model)
+    for mod in m.modules():
+        if isinstance(mod, DenseBNStack) and not isinstance(mod, SharedMLP):
+            for i, bn in enumerate(mod.bn):
+                tbn = _TorchBatchNorm(bn.weight.numel(), eps=bn.eps, momentum=bn.momentum)
+                tbn.load_state_dict(bn.state_dict(), strict=False)
+                mod.bn[i] = tbn.to(bn.weight.device)
+    return m
+
+
+def _subset(inputs, labels, draws, keep):
+    pick = lambda t: t[keep]  # noqa: E731
+    return ([pick(x) for x in inputs], {k: pick(v) for k, v in labels.items()},
+            {k: pick(v) for k, v in draws.items()})
+
+
+def check_labeler_step_against_cpu(name, model, loss_fn, inputs, labels, device,
+                                   seed: int = 0) -> dict:
+    """One train step of ``model`` on ``device`` against the same step on a CPU copy:
+    the same weights, batch (CPU tensors ``inputs`` and ``labels``), gather noise and
+    dropout mask (drawn with numpy from ``seed``). Sets whose seg mask differs between
+    the two sides must each differ only at points on a knife edge (CPU |logit margin|
+    under ``SEG_KNIFE_EDGE``); they are counted and taken out of the batch. Then the
+    loss (1e-4 relative), the BN running statistics (``STAT_TOL``), the gradients
+    (within ``GRAD_NOISE_MARGIN`` times a noise floor measured on the CPU copy as phase
+    6 measures its own, or 1e-5 of the leaf's largest gradient) and the parameters after
+    the update must agree; and the same step with torch's unbiased running variance
+    (``with_torch_batchnorm``) on the card must fail that comparison."""
+    cpu = torch.device("cpu")
+    b, n = inputs[0].shape[:2]
+    rng = np.random.default_rng(seed)
+    draws = {"noise": torch.from_numpy(rng.random((b, n), dtype=np.float32)),
+             "keep": torch.from_numpy(rng.random((b, n, 128)) >= 0.5)}
+    knife_sets = 0
+    for _ in range(3):
+        card = labeler_step(model, loss_fn, inputs, labels, draws, device)
+        ref = labeler_step(model, loss_fn, inputs, labels, draws, cpu)
+        differ = (card[3] != ref[3]).any(dim=1)
+        if not differ.any():
+            break
+        lg = ref[4]
+        margin = (lg[..., 1] - lg[..., 0]).abs()
+        edge = SEG_KNIFE_EDGE * max(1.0, float(lg.abs().max()))
+        for i in torch.nonzero(differ).flatten().tolist():
+            worst = float(margin[i][card[3][i] != ref[3][i]].max())
+            if not worst <= edge:
+                raise AssertionError(f"{name}: set {i}'s seg mask differs on the card at a "
+                                     f"logit margin of {worst:.3e} (knife edge {edge:.3e})")
+        knife_sets += int(differ.sum())
+        inputs, labels, draws = _subset(inputs, labels, draws, ~differ)
+    else:
+        raise AssertionError(f"{name}: the seg masks still differ after taking out "
+                             f"{knife_sets} knife-edge sets")
+    if len(inputs[0]) < CHECK_SETS // 2:
+        raise AssertionError(f"{name}: {knife_sets} of {CHECK_SETS} sets on knife edges")
+    perm = torch.arange(len(inputs[0])).roll(1)
+    noise, dropped = [], []
+    p_inputs, p_labels, p_draws = _subset(inputs, labels, draws, perm)
+    terms = [("permutation", lambda: labeler_step(model, loss_fn, p_inputs, p_labels,
+                                                  p_draws, cpu), perm)]
+    for sign, s in PERTURBATIONS:
+        terms.append((f"{'+' if sign > 0 else '-'}2^-19 weights, draw {s}",
+                      lambda sign=sign, s=s: labeler_step(
+                          model, loss_fn, inputs, labels, draws, cpu,
+                          perturb=sign * ULP_PERTURBATION, perturb_seed=s), None))
+    for term, step, order in terms:
+        res = step()
+        mask = res[3] if order is None else res[3][torch.argsort(order)]
+        # a term that moved a point across the seg boundary measures that, not rounding
+        (noise if torch.equal(mask, ref[3]) else dropped).append((term, res[1]))
+    if not noise:
+        raise AssertionError(f"{name}: every noise term moved a seg decision")
+
+    def compare(c):
+        loss_c, g_c, s_c = c[:3]
+        worst = {"loss_rel_err": abs(loss_c - ref[0]) / abs(ref[0]),
+                 "grad_err_over_tol": 0.0, "param_err_over_allowed": 0.0,
+                 "stat_rel_err": 0.0}
+        fails = []
+        for k, want in ref[1].items():
+            floor = max(float((want - g[k]).abs().max()) for _, g in noise)
+            tol = max(1e-5 * float(want.abs().max()) + 1e-12, GRAD_NOISE_MARGIN * floor)
+            err = float((g_c[k] - want).abs().max())
+            worst["grad_err_over_tol"] = max(worst["grad_err_over_tol"], err / tol)
+            if err > tol:
+                fails.append(f"grad {k}: {err:.3e} > {tol:.3e} (floor {floor:.3e})")
+            old = model.state_dict()[k].detach().cpu().double()
+            allowed = 1e-5 * (1 + old.abs()) + (want.abs() <= tol) * 2.0 * LABEL_LR
+            ratio = float(((s_c[k] - ref[2][k]).abs() / allowed).max())
+            worst["param_err_over_allowed"] = max(worst["param_err_over_allowed"], ratio)
+            if ratio > 1:
+                fails.append(f"param {k}: {ratio:.2f} x allowed")
+        for k, want in ref[2].items():
+            if "running" in k:
+                rel = float((s_c[k] - want).abs().max() / want.abs().max().clamp_min(1e-6))
+                worst["stat_rel_err"] = max(worst["stat_rel_err"], rel)
+                if rel > STAT_TOL:
+                    fails.append(f"BN statistic {k}: rel err {rel:.3e}")
+        if worst["loss_rel_err"] > 1e-4:
+            fails.append(f"loss {loss_c} against {ref[0]}")
+        return worst, fails
+
+    sound, failures = compare(card)
+    control, control_fails = compare(labeler_step(with_torch_batchnorm(model), loss_fn,
+                                                  inputs, labels, draws, device))
+    log(f"  {name}: one train step of {len(inputs[0])} sets on the card against a CPU copy "
+        f"({knife_sets} knife-edge sets taken out; noise terms {[t for t, _ in noise]}, "
+        f"dropped {[t for t, _ in dropped]}): " + ", ".join(
+            f"{k} {v:.3g}" for k, v in sound.items()))
+    log(f"  {name}: control (torch's unbiased running variance): {len(control_fails)} "
+        f"failures, " + ", ".join(f"{k} {v:.3g}" for k, v in control.items()))
+    if not control_fails:
+        failures.append("the control (unbiased running variance) passes the comparison")
+    if failures:
+        raise AssertionError(f"{name}: the card's train step differs from the CPU's: "
+                             + "; ".join(failures[:10]))
+    return dict(sound=sound, control=control, knife_edge_sets=knife_sets,
+                sets=len(inputs[0]), noise_terms=[t for t, _ in noise],
+                dropped_noise_terms=[t for t, _ in dropped])
+
+
+def train_labeler_on_card(name, model_type, datasets, logger, root, device) -> dict:
+    """``train_labeler`` at batch ``LABEL_BATCH`` for ``LABEL_EPOCHS`` epochs (per-epoch
+    eval through K1/K2, the best checkpoint), the step alone, then
+    ``restore_labeler_state``, ``predict_final_boxes`` and the postprocess metrics."""
+    from tdal_torch.ops import fused_pointnet as fp
+    from tdal_torch.pipeline.factories import make_labeler, restore_labeler_state
+    from tdal_torch.pipeline.labeler_engine import make_steps
+    from tdal_torch.pipeline.labeler_run import train_labeler
+    from tdal_torch.data.track_datasets import batch_iterator
+    from tdal_torch.runtime.schedules import adam_with_schedule, labeler_step_decay
+    from tdal_torch.runtime.train_state import TrainState
+
+    train_ds, val_ds, post = datasets
+    model, loss_fn, inputs_fn, kind = make_labeler(model_type, seed=0)
+    steps_per_epoch = len(train_ds) // LABEL_BATCH
+    opt = adam_with_schedule(model.parameters(), labeler_step_decay(LABEL_LR, steps_per_epoch),
+                             1e-4)
+    state = TrainState(model, opt)
+    for k in fp.launches:
+        fp.launches[k] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, best = train_labeler(model, loss_fn, inputs_fn, state, train_ds, val_ds,
+                                LABEL_EPOCHS, LABEL_BATCH, logger, ckpt_dir=root / name, seed=0)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(fp.launches)
+    eval_batches = LABEL_EPOCHS * math.ceil(len(val_ds) / LABEL_BATCH)
+    samples = LABEL_EPOCHS * steps_per_epoch * LABEL_BATCH
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for k, v in launches.items():
+        if v != eval_batches:
+            raise AssertionError(f"{name}: {k} launched {v} times in train_labeler, "
+                                 f"{eval_batches} eval batches")
+    if best.get("epoch") is None or state.step != LABEL_EPOCHS * steps_per_epoch:
+        raise AssertionError(f"{name}: {state.step} steps, best {best}")
+
+    # the step alone on one batch, synchronised (host data excluded)
+    train_step, _ = make_steps(model, loss_fn, inputs_fn)
+    batch = next(batch_iterator(train_ds, LABEL_BATCH, shuffle=True, seed=99, drop_last=True))
+    gen = torch.Generator(device=device).manual_seed(1)
+    step_s = []
+    for _ in range(4):
+        t1 = time.perf_counter()
+        metrics = train_step(state, batch, gen)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+    if not all(math.isfinite(float(v)) for v in metrics.values()):
+        raise AssertionError(f"{name}: a non-finite metric {metrics}")
+    step_ms = 1e3 * statistics.median(step_s[1:])
+
+    restored, meta = restore_labeler_state(make_labeler(model_type, seed=1)[0], root / name)
+    if meta["epoch"] != best["epoch"]:
+        raise AssertionError(f"{name}: restored {meta}, best {best}")
+    post_ds, post_fn, tracks, annos = post
+    boxes = predict_final_boxes_checked(restored, post_ds, inputs_fn, kind, device)
+    metrics_post = post_fn(tracks, annos, boxes, logger)
+    log(f"  {name}: {LABEL_EPOCHS} epochs of {steps_per_epoch} steps at batch {LABEL_BATCH} in "
+        f"{train_s:.2f} s ({samples / train_s:.1f} samples/s, data, eval and checkpoints "
+        f"included); step alone {step_ms:.1f} ms (median of 3: "
+        f"{', '.join(f'{1e3 * v:.1f}' for v in step_s[1:])}); peak memory {peak:.2f} GiB; "
+        f"K1/K2 launches in train_labeler {launches} for {eval_batches} eval batches; best "
+        f"epoch {best['epoch']} (eval acc@0.7 {best['eval_iou3d_acc']:.3f}); restored and "
+        f"labeled {len(boxes)} boxes, IoU 2D/3D/acc {metrics_post}")
+    return dict(model=restored, loss_fn=loss_fn, inputs_fn=inputs_fn, kind=kind,
+                reading=dict(train_s=train_s, samples_per_s=samples / train_s, step_ms=step_ms,
+                             step_s=step_s[1:], peak_gib=peak, launches=launches,
+                             eval_batches=eval_batches, best=best, post_metrics=metrics_post,
+                             boxes=len(boxes), train_samples=len(train_ds),
+                             val_samples=len(val_ds)))
+
+
+def predict_final_boxes_checked(model, ds, inputs_fn, kind, device):
+    from tdal_torch.pipeline.labeler_run import predict_final_boxes
+
+    boxes = predict_final_boxes(model, ds, inputs_fn, kind, PREDICT_BATCH, device=device)
+    if not (len(boxes) == len(ds) and np.isfinite(boxes).all()):
+        raise AssertionError(f"predict_final_boxes: {boxes.shape}, finite "
+                             f"{np.isfinite(boxes).all()}")
+    return boxes
+
+
+def check_batch(ds, inputs_fn, n):
+    """The first ``n`` samples of ``ds``: (CPU input tensors, CPU label tensors)."""
+    from tdal_torch.data.track_datasets import batch_iterator
+    from tdal_torch.pipeline.labeler_engine import LABEL_KEYS
+
+    batch = next(batch_iterator(ds, n, pad_to_full=True))
+    return ([torch.as_tensor(np.asarray(x)) for x in inputs_fn(batch)],
+            {k: torch.as_tensor(np.asarray(batch[k])) for k in LABEL_KEYS})
+
+
+def phase_labelers(device, root: Path, logger) -> dict:
+    """8(a): both labelers trained on the card at their production widths."""
+    from tdal_torch.data.track_datasets import (
+        DynamicTrackDataset, StaticTrackDataset, preprocess_tracks,
+    )
+    from tdal_torch.pipeline.labeler_run import postprocess_dynamic, postprocess_static
+
+    t0 = time.perf_counter()
+    annos, static, dynamic = labeler_segment(root, LABEL_SEGMENT)
+    s_train, s_val = preprocess_tracks(static, annos, ratio=0.1, seed=0)
+    d_train, d_val = preprocess_tracks(dynamic, annos, ratio=0.1, seed=0)
+    log(f"  labeler segment ({LABEL_SEGMENT['n_scenes']} scenes) through stages 2-4 in "
+        f"{time.perf_counter() - t0:.1f} s: {len(static)} static tracks ({len(s_train)} train,"
+        f" {len(s_val)} eval), {len(dynamic)} dynamic ({len(d_train)} train, {len(d_val)} "
+        f"eval)")
+    out = {}
+    for name, model_type, cls, npts, (tr, va), post in (
+        ("static", "one_box_est", StaticTrackDataset, NPOINTS_STATIC, (s_train, s_val),
+         postprocess_static),
+        ("dynamic", "dynamic", DynamicTrackDataset, NPOINTS_DYNAMIC, (d_train, d_val),
+         postprocess_dynamic),
+    ):
+        make = lambda t, s, cls=cls, npts=npts: cls(t, annos, npoints=npts, seed=s)  # noqa: E731
+        train_ds, val_ds = make(tr, 0), make(va, 1)
+        if len(train_ds) < 2 * LABEL_BATCH:
+            raise AssertionError(f"{name}: {len(train_ds)} train samples, fewer than two "
+                                 f"batches of {LABEL_BATCH}")
+        res = train_labeler_on_card(name, model_type, (train_ds, val_ds,
+                                    (make(va, 2), post, va, annos)), logger, root, device)
+        inputs, labels = check_batch(make(tr, 3), res["inputs_fn"], CHECK_SETS)
+        t1 = time.perf_counter()
+        res["reading"]["cpu_check"] = check_labeler_step_against_cpu(
+            name, res["model"], res["loss_fn"], inputs, labels, device)
+        res["reading"]["cpu_check_s"] = time.perf_counter() - t1
+        out[name] = res
+    return out
+
+
+def phase_offboard(device, cfg, trained) -> dict:
+    """8: the labelers trained on the card (8(a)), then the Waymo PP detector, from
+    ``trained``'s weights, trained in rounds on a bus-sized segment until the chain it
+    feeds labels a static box (at most ``CHAIN_MAX_STEPS`` steps); then ``measure`` of
+    the whole chain with the launch counters set to 0 just before the timed pass."""
+    from tdal_torch.data.detection import DetectionDataset
+    from tdal_torch.data.synthetic import make_synthetic_dataset
+    from tdal_torch.data.waymo_schema import AnnoStore, reorganize_info
+    from tdal_torch.models.builder import (
+        build_assigner, build_detector, build_test_cfg, build_voxel_config,
+    )
+    from tdal_torch.ops import conv3x3 as cv
+    from tdal_torch.ops import fused_pointnet as fp
+    from tdal_torch.pipeline.detector_run import run_inference, train_detector
+    from tdal_torch.pipeline.offboard import label_chain, measure
+    from tdal_torch.runtime.schedules import adam_with_schedule
+    from tdal_torch.runtime.train_state import TrainState
+
+    logger = logging.getLogger("chip_smoke")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        labelers = phase_labelers(device, root / "labelers", logger)
+        out["labelers"] = {k: v["reading"] for k, v in labelers.items()}
+        out["labelers_s"] = time.perf_counter() - t0
+        chain_labelers = tuple((labelers[k]["model"], labelers[k]["inputs_fn"],
+                                labelers[k]["kind"]) for k in ("static", "dynamic"))
+
+        t0 = time.perf_counter()
+        voxel_cfg = build_voxel_config(cfg.voxel_generator, train=True)
+        model = build_detector(cfg.model, voxel_cfg, device=device)
+        model.load_state_dict(trained.state_dict())
+        assigner = build_assigner(cfg.assigner, model)
+        test_vox = build_voxel_config(cfg.voxel_generator, train=False)
+        infer_model = build_detector(cfg.model, test_vox, device=device)  # the test pillars
+        test_cfg = build_test_cfg(dict(cfg.test_cfg, score_threshold=CHAIN_SCORE_THRESHOLD),
+                                  model, test_vox)
+
+        def segment(sub, seg):
+            infos, _ = make_synthetic_dataset(root / sub, **seg)
+            info_map = reorganize_info(infos)
+            ds = DetectionDataset(infos, cfg.class_names, assigner, test_vox, mode="val",
+                                  max_points=cfg.data["val"]["max_points"],
+                                  shuffle_points=False)
+            return infos, (ds, info_map, AnnoStore(info_map))
+
+        infos, seg = segment("chain", CHAIN_SEGMENT)
+        _, warm_seg = segment("chain_warm", CHAIN_WARM_SEGMENT)
+        train_ds = DetectionDataset(infos, cfg.class_names, assigner, voxel_cfg, mode="train",
+                                    max_points=cfg.data["train"]["max_points"],
+                                    global_rot_noise=(0.0, 0.0),
+                                    global_scale_noise=(1.0, 1.0), seed=0)
+        # tdal's real-detector test: Adam at 3e-3, the global norm clipped at 35
+        opt = adam_with_schedule(model.parameters(), lambda step: 3e-3, 0.0, 35.0)
+        state = TrainState(model, opt)
+        head = cfg.model["bbox_head"]
+        steps_per_epoch = math.ceil(len(train_ds) / PP_BATCH)
+        rounds, steps = [], 0
+        for k in cv.launches:
+            cv.launches[k] = 0
+        while steps < CHAIN_MAX_STEPS:
+            t1 = time.perf_counter()
+            epochs = CHAIN_ROUND_STEPS // steps_per_epoch
+            train_detector(state, train_ds, head["code_weights"], n_epoch=epochs,
+                           batch_size=PP_BATCH, logger=logger,
+                           work_dir=root / f"det_round{len(rounds)}", weight=head["weight"],
+                           log_every=steps_per_epoch * epochs, seed=len(rounds))
+            torch.cuda.synchronize()
+            steps += epochs * steps_per_epoch
+            train_s = time.perf_counter() - t1
+            shutil.rmtree(root / f"det_round{len(rounds)}")  # its checkpoint per epoch
+            infer_model.load_state_dict(model.state_dict())
+            detections = run_inference(TrainState(infer_model, None), seg[0], test_cfg,
+                                       PP_BATCH, logger)
+            res = label_chain(detections,
+                              seg[1], seg[2], chain_labelers, root / f"round{len(rounds)}",
+                              logger, device=device, **CHAIN_KW)
+            rounds.append(dict(steps=steps, train_s=train_s, counts=res["counts"]))
+            log(f"  detector round {len(rounds)}: {steps} steps in all ({train_s:.1f} s for "
+                f"this round's {epochs * steps_per_epoch}); chain counts {res['counts']}")
+            if res["counts"]["static_boxes_labeled"] > 0:
+                break
+        conv_launches = dict(cv.launches)
+        per_step = {k: v / steps for k, v in conv_launches.items()}
+        for k, v in conv_launches.items():
+            if v != steps * PP_LAUNCHES[k]:
+                raise AssertionError(f"{k}: {v} launches in {steps} chain training steps, "
+                                     f"expected {PP_LAUNCHES[k]} per step")
+        out.update(detector_steps=steps, rounds=rounds, conv_launches=conv_launches,
+                   conv_launches_per_step=per_step, detector_s=time.perf_counter() - t0)
+
+        # the whole chain: a warm pass on a shorter segment, then the timed pass with
+        # the launch counters set to 0 just before it
+        def zero_counts():
+            for k in fp.launches:
+                fp.launches[k] = 0
+
+        t0 = time.perf_counter()
+        infer_model.load_state_dict(model.state_dict())
+        measured = measure(TrainState(infer_model, None), test_cfg, seg, warm_seg,
+                           chain_labelers, root / "measure", logger, before_timed=zero_counts,
+                           batch_size=PP_BATCH, **CHAIN_KW)
+        torch.cuda.synchronize()
+        k_launches = dict(fp.launches)
+        counts = measured["counts"]
+        log(f"  chain: {measured['frames_per_sec']:.3f} frames/s over {measured['n_frames']} "
+            f"frames ({measured['total_s']:.3f} s; stages "
+            f"{ {k: round(v, 4) for k, v in measured['stage_s'].items()} }); counts {counts}; "
+            f"warm counts {measured['warm_counts']}; K1/K2 launches {k_launches} for "
+            f"{counts['predict_batches']} predict batches; whole measure "
+            f"{time.perf_counter() - t0:.1f} s")
+        if not counts["static_boxes_labeled"] > 0:
+            raise AssertionError(f"the detector-fed chain labeled no static box: {counts}")
+        for k, v in k_launches.items():
+            if v != counts["predict_batches"]:
+                raise AssertionError(f"{k}: {v} launches for {counts['predict_batches']} "
+                                     f"predict batches")
+        boxes = measured["result"]["boxes"]
+        for kind, b in boxes.items():
+            if not (np.isfinite(b).all() and b.shape[1] == 7):
+                raise AssertionError(f"{kind} boxes not finite or not (n, 7): {b.shape}")
+        out.update(frames_per_s=measured["frames_per_sec"], total_s=measured["total_s"],
+                   stage_s=measured["stage_s"], counts=counts,
+                   warm_counts=measured["warm_counts"], k1k2_launches=k_launches,
+                   metrics=measured["result"]["metrics"])
+    return out
+
+
 # a rounding-level relative change of every weight: the probe's stand-in for the
 # card-vs-CPU rounding difference, which costs a minute and a half of CPU to measure
 PROBE_ROUNDING = 2.0**-22
@@ -1531,6 +1967,8 @@ def main() -> int:
     parser.add_argument("--noise-probe", type=int, default=0, metavar="STATES",
                         help="build, then run only the noise-floor probe over STATES "
                              "training states (see noise_probe)")
+    parser.add_argument("--offboard-only", action="store_true",
+                        help="build, then run only phase 8 from a fresh detector")
     parser.add_argument("--library-times", action="store_true",
                         help="only time phase 5's cuDNN calls in benchmark mode and print "
                              "them as one JSON line (phase 5 runs this in a child process)")
@@ -1597,6 +2035,15 @@ def main() -> int:
         log("noise-floor probe")
         print(json.dumps(noise_probe(device, args.noise_probe)))
         return 0
+    if args.offboard_only:
+        from tdal_torch.models.builder import build_detector, build_voxel_config
+        from tdal_torch.runtime.config import Config
+
+        cfg = Config.fromfile(PP_CONFIG)
+        fresh = build_detector(cfg.model, build_voxel_config(cfg.voxel_generator), seed=0)
+        log("phase 8 the offboard chain (alone, from a fresh detector)")
+        print(json.dumps(phase_offboard(device, cfg, fresh), default=str))
+        return 0
 
     lap(2)
 
@@ -1624,12 +2071,22 @@ def main() -> int:
     infer = phase_infer(device, pp_cfg, pp_model)
     lap(7)
 
+    log("phase 8 the offboard chain: labeler training, then the detector-fed chain")
+    offboard = phase_offboard(device, pp_cfg, pp_model)
+    lap(8)
+
     entries = []
     for name, by_case in kres.items():
         main_case = by_case["static f32"]  # the main path's mode, at the static labeler's shape
         entries.append(dict(
             name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-            launches=chain["launches"][name], max_abs_err=main_case["max_abs_err"],
+            launches=offboard["k1k2_launches"][name],
+            launches_by_path={
+                "phase 4 stages 2-6": chain["launches"][name],
+                "phase 8 labeler eval": sum(r["launches"][name]
+                                            for r in offboard["labelers"].values()),
+                "phase 8 chain": offboard["k1k2_launches"][name]},
+            max_abs_err=main_case["max_abs_err"],
             ms=main_case["ms"], plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
             bound_by=main_case["bound_by"], library_ms=None,
             kernel_ms=main_case["kernel_ms"],
@@ -1646,10 +2103,13 @@ def main() -> int:
             # the prototype has no caller: its function is K4's, counted on the path
             PROTO["name"]: {"same_kernel_as": "conv3x3_fwd"},
         }.get(name, {})
+        key = "conv3x3_fwd" if proto else name
         entries.append(dict(
             name=name, route="cuda", source=CONV_SOURCE,
             replaces=PROTO["replaces"] if proto else CONV_REPLACES[name],
-            launches=train["launches"]["conv3x3_fwd" if proto else name],
+            launches=offboard["conv_launches"][key],
+            launches_by_path={"phase 6 timed steps": train["launches"][key],
+                              "phase 8 detector rounds": offboard["conv_launches"][key]},
             max_abs_err=main_case["max_abs_err"], ms=main_case["ms"],
             plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
             bound_by=main_case["bound_by"], library_ms=main_case["library_ms"],
@@ -1668,6 +2128,7 @@ def main() -> int:
     train_summary = {k: v for k, v in train.items() if k != "launches"}
     log(f"  training summary: {json.dumps(train_summary)}")
     log(f"  inference summary: {json.dumps(infer)}")
+    log(f"  offboard summary: {json.dumps(offboard, default=str)}")
     log(f"  seconds by phase (phase 2 from the start): {json.dumps(seconds)}")
     log(f"card: {kind} | {smi}")
     print(json.dumps({"kernels": entries}))

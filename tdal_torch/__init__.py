@@ -7,9 +7,15 @@ plain-PyTorch twin beside it that defines what it computes.
 
 - core/      codecs, geometry, rotated IoU (plain torch)
 - ops/       the CUDA kernels, their twins, and the build that compiles them at first use
-- models/    the Frustum-PointNet static & dynamic labelers (eval forwards)
-- data/      on-disk schema, synthetic segments, track datasets
-- pipeline/  stages 2-6: track -> trackData -> motion split -> static/dynamic label
+- models/    the PointPillars detector and the Frustum-PointNet static & dynamic
+             labelers (train and eval forwards, the frustum losses)
+- data/      on-disk schema, synthetic segments, detection and track datasets, the
+             ``.tdc`` frame cache
+- pipeline/  detector and labeler training and inference, stages 2-6, and the chained
+             offboard pipeline (``offboard``: detect -> track -> extract -> motion
+             split -> label)
+- runtime/   config, schedules, AdamW, train state, checkpoints, logging
+- tools/     the command-line entry points (``python -m tdal_torch.tools.<stage>``)
 - convert    flax parameter trees (as numpy) -> the port's ``state_dict``s
 
 Entry points take ``device=None``, which means ``cuda`` and raises without a card;

@@ -19,6 +19,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from tdal_torch.models.layers import BatchNorm
+
 # flax child scope -> port attribute, per port module class
 _CHILDREN = {
     "PointNetSeg": {"SharedMLP_0": "enc1", "SharedMLP_1": "enc2", "SharedMLP_2": "dec",
@@ -63,13 +65,8 @@ def flax_to_state_dict(model: nn.Module, params: dict, batch_stats: dict | None 
             if isinstance(child, nn.Linear):
                 out[key + "weight"] = _t(sub["kernel"]).t().contiguous()
                 out[key + "bias"] = _t(sub["bias"])
-            elif isinstance(child, nn.BatchNorm1d):
-                stats = bs[name]
-                out[key + "weight"] = _t(sub["scale"])
-                out[key + "bias"] = _t(sub["bias"])
-                out[key + "running_mean"] = _t(stats["mean"])
-                out[key + "running_var"] = _t(stats["var"])
-                out[key + "num_batches_tracked"] = torch.tensor(0)
+            elif isinstance(child, BatchNorm):
+                _bn(out, key, sub, bs[name])
             else:
                 walk(child, sub, bs.get(name, {}), key)
 

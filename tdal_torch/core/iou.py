@@ -138,3 +138,26 @@ def labeler_box3d_iou(boxes_a, boxes_b):
     vol_b = area_b * b[..., 5]
     iou3d = inter_vol / (vol_a + vol_b - inter_vol).clamp_min(_EPS)
     return iou3d, iou2d
+
+
+def compute_box3d_iou(center_pred, heading_logits, heading_residuals, size_logits,
+                      size_residuals, center_label, heading_class_label,
+                      heading_residual_label, size_class_label, size_residual_label):
+    """Argmax-decode labeler outputs and their labels to boxes and measure their corner
+    IoU: (iou2d (B,), iou3d (B,)).
+
+    Parity: tdal.core.iou.compute_box3d_iou (reference tools/utils.py:81-103), the
+    fpointnet corner IoU of ``labeler_box3d_iou`` included."""
+    from tdal_torch.core.codecs import class2angle, class2size
+
+    b = torch.arange(center_pred.shape[0], device=center_pred.device)
+    heading_class = heading_logits.argmax(dim=1)
+    size_class = size_logits.argmax(dim=1)
+    heading = class2angle(heading_class, heading_residuals[b, heading_class])
+    size = class2size(size_class, size_residuals[b, size_class])
+    box_pred = torch.cat([center_pred, size, heading[:, None]], dim=1)
+    heading_l = class2angle(heading_class_label, heading_residual_label)
+    size_l = class2size(size_class_label, size_residual_label)
+    box_label = torch.cat([center_label, size_l, heading_l[:, None]], dim=1)
+    iou3d, iou2d = labeler_box3d_iou(box_pred, box_label)
+    return iou2d, iou3d

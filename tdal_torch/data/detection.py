@@ -6,8 +6,9 @@ seed): point loading with tanh-normalised intensity and the multi-sweep merge
 global rotation / scaling / translation, preprocess.py:771-963), class and range
 filtering, point shuffling, and CenterNet targets (``tdal_torch.core.targets``).
 Frames come out as fixed-shape NaN-padded point clouds; voxelization runs on the
-device inside the detector. The GT-aug database sampler and the columnar frame cache
-are not ported yet: points are read from the frame pickles.
+device inside the detector. Points are read from a frame's ``.tdc`` cache
+(``tdal_torch.data.frame_cache``) where one was built, else from its pickle. The
+GT-aug database sampler is not ported yet.
 """
 
 from __future__ import annotations
@@ -89,7 +90,13 @@ def global_translate(gt_boxes, points, rng, noise_translate_std=0.0):
 
 
 def _load_frame_points(path) -> np.ndarray:
-    """[xyz, tanh(intensity), elongation] for one frame, from its pickle."""
+    """[xyz, tanh(intensity), elongation] for one frame: its .tdc cache where
+    ``tdal_torch.data.frame_cache.build_cache`` wrote one, else its pickle."""
+    from tdal_torch.data.frame_cache import read_frame_points
+
+    cached = read_frame_points(path)
+    if cached is not None:
+        return cached
     obj = load_pickle(path)
     xyz = np.asarray(obj["lidars"]["points_xyz"], np.float32)
     feat = np.array(obj["lidars"]["points_feature"], np.float32)

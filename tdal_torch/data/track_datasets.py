@@ -1,8 +1,8 @@
 """Track-keyed datasets for the static & dynamic auto-labelers.
 
-A copy of ``tdal/data/track_datasets.py`` (datasets, ``collate``, ``batch_iterator``):
-the same numpy ``default_rng(seed)`` draws, so both packages yield identical batches.
-The parallel iterators arrive with the training slice.
+A copy of ``tdal/data/track_datasets.py`` (datasets, ``collate``, ``batch_iterator``,
+``parallel_batch_iterator``, ``Prefetcher``): the same numpy ``default_rng(seed)``
+draws, so both packages yield identical batches.
 
 Host-side numpy counterparts of reference ``STATICTRACK`` (tools/static_model.py:519-598)
 and ``DYNAMICTRACK`` (tools/dynamic_model.py:400-535), producing fixed-shape batches for
@@ -463,3 +463,81 @@ def batch_iterator(
             batch = collate([dataset[int(i)] for i in sel])
         batch["n_valid"] = min(batch_size, n - start)
         yield batch
+
+
+_POOL_DATASET = None  # each worker's copy of the dataset (set by _init_pool)
+
+
+def _init_pool(dataset):
+    global _POOL_DATASET
+    _POOL_DATASET = dataset
+
+
+def _pool_make_batch(args):
+    sel, n_valid = args
+    batch = collate([_POOL_DATASET[int(i)] for i in sel])
+    batch["n_valid"] = n_valid
+    return batch
+
+
+def parallel_batch_iterator(dataset, batch_size: int, num_workers: int = 4,
+                            shuffle: bool = False, seed: int = 0, drop_last: bool = False,
+                            pad_to_full: bool = True) -> Iterator[Dict[str, np.ndarray]]:
+    """``batch_iterator``'s batches, in its order, each collated from the dataset's
+    items by a pool of ``num_workers`` spawned processes (safe beside CUDA and threads;
+    each worker unpickles one copy of the dataset, so a dataset that draws from its own
+    generator draws from that worker's copy). With ``num_workers`` 0 it is
+    ``batch_iterator``."""
+    if num_workers <= 0:
+        yield from batch_iterator(dataset, batch_size, shuffle=shuffle, seed=seed,
+                                  drop_last=drop_last, pad_to_full=pad_to_full)
+        return
+    import multiprocessing as mp
+
+    n = len(dataset)
+    idx = np.arange(n)
+    if shuffle:
+        np.random.default_rng(seed).shuffle(idx)
+    jobs = []
+    for start in range(0, n, batch_size):
+        sel = idx[start : start + batch_size]
+        if len(sel) < batch_size:
+            if drop_last:
+                break
+            if pad_to_full:
+                sel = np.concatenate([sel, np.full(batch_size - len(sel), sel[-1])])
+        jobs.append((sel, min(batch_size, n - start)))
+    with mp.get_context("spawn").Pool(num_workers, initializer=_init_pool,
+                                      initargs=(dataset,)) as pool:
+        yield from pool.imap(_pool_make_batch, jobs, chunksize=1)
+
+
+class Prefetcher:
+    """Runs ``iterator`` on a thread, ``depth`` items ahead of the consumer; an error
+    raised there is raised again in the consumer. Parity: det3d/solver/background.py."""
+
+    def __init__(self, iterator, depth: int = 2):
+        import queue
+        import threading
+
+        self._q = queue.Queue(maxsize=depth)
+        self._end = object()
+
+        def worker():
+            try:
+                for item in iterator:
+                    self._q.put((True, item))
+            except Exception as e:  # handed over to the consumer
+                self._q.put((False, e))
+            self._q.put((True, self._end))
+
+        threading.Thread(target=worker, daemon=True).start()
+
+    def __iter__(self):
+        while True:
+            ok, item = self._q.get()
+            if not ok:
+                raise item
+            if item is self._end:
+                return
+            yield item

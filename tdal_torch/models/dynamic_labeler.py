@@ -1,5 +1,7 @@
 """Dynamic-object auto-labeler: per-frame Frustum-PointNet + box-trajectory
-embedding. Eval forwards of ``tdal/models/dynamic_labeler.py:37-121``.
+embedding. Port of ``tdal/models/dynamic_labeler.py``: the forward (training takes
+the draws of ``tdal_torch.models.pointnet.train_draws``) and ``dynamic_loss``, the
+one-box frustum loss.
 
 pts (B, 5*1024, 4) (xyz + frame time), boxes (B, 101, 8) (box + time) -> the 59-dim
 box prediction; the predicted center is a delta from the center-frame init box.
@@ -18,7 +20,7 @@ from tdal_torch.models.pointnet import (
     gather_object_points,
     parse_box_pred,
 )
-from tdal_torch.models.static_labeler import _require_eval
+from tdal_torch.models.static_labeler import _train_noise, frustum_loss_one_box
 
 NUM_POINT = 1024  # points per frame (dynamic_model.py:15)
 NUM_FRAME = 5  # +-2 frame window (dynamic_model.py:16)
@@ -73,14 +75,17 @@ class DynamicLabeler(nn.Module):
         self.box_emb = BoxEmbedding(8)
         self.head = EmbeddingBoxHead(256 + 128)
 
-    def forward(self, pts, boxes, bbox_gt=None):
-        _require_eval(self)
-        logits = self.seg(pts)
+    def forward(self, pts, boxes, bbox_gt=None, noise=None, keep=None):
+        logits = self.seg(pts, keep)
         # all 4 channels (xyz + time) are gathered (dynamic_model.py:52-63)
-        object_pts, mask = gather_object_points(pts, logits, self.n_object_points)
+        object_pts, mask = gather_object_points(pts, logits, self.n_object_points,
+                                                _train_noise(self, noise))
         emb = torch.cat([self.point_emb(object_pts), self.box_emb(boxes)], dim=1)
         out = parse_box_pred(self.head(emb))
         out["logits"] = logits
         out["mask"] = mask
         out["center"] = out["center_delta"]  # a delta; eval adds the init box back
         return out
+
+
+dynamic_loss = frustum_loss_one_box

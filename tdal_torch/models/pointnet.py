@@ -1,12 +1,17 @@
-"""PointNet building blocks of the Frustum-PointNet auto-labelers (eval forwards).
+"""PointNet building blocks of the Frustum-PointNet auto-labelers.
 
 Port of ``tdal/models/pointnet.py``. Layout is channels-last ``(B, N, C)``: every
-shared-MLP layer is an ``nn.Linear`` over the last axis, followed by
-``nn.BatchNorm1d`` (eps 1e-5) over all other axes, then ReLU.
+shared-MLP layer is an ``nn.Linear`` over the last axis, followed by flax's
+BatchNorm (``tdal_torch.models.layers.BatchNorm``: momentum 0.9 in flax's terms, eps
+1e-5, batch statistics over all other axes with the biased variance feeding the
+running average), then ReLU.
 
 In eval mode on a CUDA tensor, ``PointNetSeg`` runs folded BN -> K1 -> K2
 (``tdal_torch.ops.fused_pointnet``) on weights folded and packed once per state of its
-parameters and buffers; everywhere else it runs its layers.
+parameters and buffers; everywhere else, training included, it runs its layers.
+Training takes its random draws as inputs: the dropout keep-mask of ``PointNetSeg``
+and the gather noise of ``gather_object_points`` (``train_draws`` makes both from a
+``torch.Generator``).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from tdal_torch.core.codecs import (
     class2size,
     mean_size,
 )
+from tdal_torch.models.layers import BatchNorm
 from tdal_torch.ops.fused_pointnet import (
     fold_pointnet_seg_params,
     pointnet_seg_logits,
@@ -32,8 +38,10 @@ from tdal_torch.ops.fused_pointnet import (
 
 BOX_PRED_DIM = 3 + NUM_HEADING_BIN * 2 + NUM_SIZE_CLUSTER * 4  # 59
 
-# flax BatchNorm momentum 0.9 keeps 0.9 of the old running stat; torch keeps 1 - 0.1
+# flax BatchNorm momentum 0.9 keeps 0.9 of the old running stat: the port's 0.1 is the
+# weight of the batch statistic
 _BN_KW = dict(eps=1e-5, momentum=0.1)
+DROPOUT_RATE = 0.5  # before the seg logits (tdal pointnet.py:113)
 
 
 class DenseBNStack(nn.Module):
@@ -45,12 +53,11 @@ class DenseBNStack(nn.Module):
         super().__init__()
         widths = [in_features, *features]
         self.dense = nn.ModuleList(nn.Linear(a, b) for a, b in zip(widths, widths[1:]))
-        self.bn = nn.ModuleList(nn.BatchNorm1d(f, **_BN_KW) for f in features)
+        self.bn = nn.ModuleList(BatchNorm(f, **_BN_KW) for f in features)
 
     def forward(self, x):
         for dense, bn in zip(self.dense, self.bn):
-            x = dense(x)
-            x = torch.relu(bn(x.reshape(-1, x.shape[-1])).reshape(x.shape))
+            x = torch.relu(bn(dense(x)))
         return x
 
 
@@ -63,7 +70,9 @@ class PointNetSeg(nn.Module):
     """3D instance-segmentation PointNet: (B, N, C) -> logits (B, N, 2).
 
     Encoder (64, 64 | 64, 128, 1024) -> per-set max -> concat with the 64-ch skip
-    (1088) -> decoder (512, 256, 128, 128) -> 2 logits (dropout is eval identity)."""
+    (1088) -> decoder (512, 256, 128, 128) -> dropout -> 2 logits. Dropout is the
+    identity in eval; in training ``keep`` (B, N, 128) bool is its keep-mask, and a
+    kept activation is scaled by 1 / (1 - rate), as flax's ``nn.Dropout``."""
 
     def __init__(self, in_channels: int = 3):
         super().__init__()
@@ -92,14 +101,20 @@ class PointNetSeg(nn.Module):
                 self._packed = (folded, seg_weight_streams(folded), [t.detach() for t in tensors])
         return self._packed[:2]
 
-    def forward(self, pts):
+    def forward(self, pts, keep=None):
         if not self.training and pts.is_cuda:
             folded, streams = self.packed()
             return pointnet_seg_logits(folded, pts, streams=streams)
         enc1 = self.enc1(pts)
         enc2 = self.enc2(enc1)
         global_feat = enc2.amax(dim=1, keepdim=True).expand(-1, pts.shape[1], -1)
-        return self.logits(self.dec(torch.cat([enc1, global_feat], dim=-1)))
+        x = self.dec(torch.cat([enc1, global_feat], dim=-1))
+        if self.training:
+            if keep is None:
+                raise ValueError("PointNetSeg: training needs the dropout keep-mask "
+                                 "(see train_draws)")
+            x = torch.where(keep, x / (1.0 - DROPOUT_RATE), torch.zeros_like(x))
+        return self.logits(x)
 
 
 class PointNetBoxEst(nn.Module):
@@ -138,6 +153,17 @@ def gather_object_points(pts, logits, n_pts: int, noise=None):
     idx = torch.gather(order, 1, take)
     gathered = torch.gather(pts, 1, idx[..., None].expand(-1, -1, pts.shape[-1]))
     return gathered * (n_pos > 0)[:, None, None].to(pts.dtype), mask
+
+
+def train_draws(pts, generator: torch.Generator) -> dict:
+    """The random draws of one labeler train forward over ``pts`` (B, N, C), from
+    ``generator`` (on ``pts``' device), in this order: ``noise`` (B, N) uniform in
+    [0, 1), the gather's sort key, and ``keep`` (B, N, 128) bool, the seg head's
+    dropout keep-mask with keep probability 1 - ``DROPOUT_RATE``."""
+    b, n = pts.shape[:2]
+    noise = torch.rand((b, n), generator=generator, device=pts.device)
+    keep = torch.rand((b, n, 128), generator=generator, device=pts.device) >= DROPOUT_RATE
+    return {"noise": noise, "keep": keep}
 
 
 def parse_box_pred(box_pred):

@@ -1,21 +1,30 @@
-"""Labeler factory (port of ``tdal/pipeline/factories.py:make_labeler``)."""
+"""Factories of the labeler stages: port of ``tdal/pipeline/factories.py``
+(``make_labeler``, ``load_track_data``, ``restore_labeler_state``)."""
 
 from __future__ import annotations
 
 import math
+import pickle
+from pathlib import Path
 
 import torch
 from torch import nn
 
 from tdal_torch.device import resolve_device
-from tdal_torch.models.dynamic_labeler import DynamicLabeler
+from tdal_torch.models.dynamic_labeler import DynamicLabeler, dynamic_loss
+from tdal_torch.models.layers import BatchNorm
 from tdal_torch.models.pointnet import PointNetSeg
-from tdal_torch.models.static_labeler import StaticLabelerOneBox, StaticLabelerTwoBox
+from tdal_torch.models.static_labeler import (
+    StaticLabelerOneBox, StaticLabelerTwoBox, frustum_loss_one_box, frustum_loss_two_box,
+)
+from tdal_torch.runtime.checkpoint import CheckpointManager
 
 _MODELS = {
-    "one_box_est": (StaticLabelerOneBox, ("pts", "init_box", "bbox_gt"), "static_one"),
-    "two_box_est": (StaticLabelerTwoBox, ("pts", "init_box", "bbox_gt"), "static_two"),
-    "dynamic": (DynamicLabeler, ("pts", "boxes", "bbox_gt"), "dynamic"),
+    "one_box_est": (StaticLabelerOneBox, frustum_loss_one_box, ("pts", "init_box", "bbox_gt"),
+                    "static_one"),
+    "two_box_est": (StaticLabelerTwoBox, frustum_loss_two_box, ("pts", "init_box", "bbox_gt"),
+                    "static_two"),
+    "dynamic": (DynamicLabeler, dynamic_loss, ("pts", "boxes", "bbox_gt"), "dynamic"),
 }
 
 
@@ -39,8 +48,8 @@ def random_pointnet_seg(cin: int, seed: int) -> PointNetSeg:
     model = init_weights(PointNetSeg(cin), g)
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, nn.BatchNorm1d):
-                n = m.num_features
+            if isinstance(m, BatchNorm):
+                n = m.weight.numel()
                 m.weight.copy_(0.5 + torch.rand(n, generator=g))
                 m.bias.copy_(0.1 * torch.randn(n, generator=g))
                 m.running_mean.copy_(0.1 * torch.randn(n, generator=g))
@@ -52,13 +61,41 @@ def make_labeler(model_type: str, n_object_points: int | None = None, device=Non
                  seed: int = 0):
     """model_type in {'one_box_est', 'two_box_est', 'dynamic'} ->
     (model on ``device`` in eval mode, fresh-init from a ``torch.Generator`` seeded
-    with ``seed``; inputs_fn(batch) -> the forward's arguments; decode kind).
-
-    The loss functions of tdal's factory arrive with the training slice."""
+    with ``seed``; loss_fn(output, labels); inputs_fn(batch) -> the forward's
+    arguments; decode kind)."""
     if model_type not in _MODELS:
         raise ValueError(f"unknown model_type {model_type!r}")
     dev = resolve_device(device)
-    cls, keys, kind = _MODELS[model_type]
+    cls, loss_fn, keys, kind = _MODELS[model_type]
     model = cls(**({"n_object_points": n_object_points} if n_object_points else {}))
     init_weights(model, torch.Generator().manual_seed(seed))
-    return model.to(dev).eval(), (lambda b: tuple(b[k] for k in keys)), kind
+    return model.to(dev).eval(), loss_fn, (lambda b: tuple(b[k] for k in keys)), kind
+
+
+def load_track_data(path, split: int = 16, prefix: str | None = None) -> dict:
+    """A track dict from one pickle, or merged from the ``{prefix}_{i}.pkl`` shards of
+    a directory (the reference's 16-way train sharding, static_train.py:192-198)."""
+    p = Path(path)
+    if p.is_file():
+        with open(p, "rb") as f:
+            return pickle.load(f)
+    if prefix is None:
+        raise ValueError("load_track_data: a shard directory needs its prefix")
+    track: dict = {}
+    for i in range(split):
+        shard = p / f"{prefix}_{i}.pkl"
+        if shard.exists():
+            with open(shard, "rb") as f:
+                track.update(pickle.load(f))
+    return track
+
+
+def restore_labeler_state(model: nn.Module, ckpt_dir, prefer_best: bool = True):
+    """Load the best (or, with ``prefer_best`` False or no best marker, the latest)
+    checkpoint that ``train_labeler`` saved under ``ckpt_dir`` into ``model``, on its
+    device: (model in eval mode, the checkpoint's meta)."""
+    mgr = CheckpointManager(ckpt_dir)
+    step = mgr.best_step() if prefer_best else None
+    state, meta = mgr.restore(step)
+    model.load_state_dict(state["model"])
+    return model.eval(), meta

@@ -1,13 +1,15 @@
-"""Labeler stages 5-6: final-box prediction and postprocessing.
+"""Labeler stages 5-6: training, final-box prediction and postprocessing.
 
-Port of ``tdal/pipeline/labeler_run.py`` (``decode_final_boxes_np`` :141,
-``predict_final_boxes`` :174-191, ``sort_detections``, ``build_token2idx``,
-``postprocess_static``, ``postprocess_dynamic``). Training and the no-learning
-baselines arrive with later slices.
+Port of ``tdal/pipeline/labeler_run.py``: ``train_labeler`` (:41-135: the epoch loop,
+per-epoch eval, the best checkpoint by eval ``iou3d_acc_07``), ``decode_final_boxes_np``,
+``predict_final_boxes``, ``sort_detections``, ``build_token2idx``,
+``postprocess_static``, ``postprocess_dynamic`` and the no-learning baselines
+``calculate_init_iou`` / ``calculate_static_iou`` (:343-389).
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Dict
 
 import numpy as np
@@ -15,15 +17,70 @@ import torch
 
 from tdal_torch.core.codecs import MEAN_SIZE_ARR
 from tdal_torch.core.iou import labeler_box3d_iou
-from tdal_torch.data.track_datasets import batch_iterator
+from tdal_torch.data.track_datasets import Prefetcher, batch_iterator, parallel_batch_iterator
 from tdal_torch.data.waymo_schema import AnnoStore, box7_from_box9, transform_box_np
 from tdal_torch.device import resolve_device
+from tdal_torch.pipeline.labeler_engine import average_metrics, make_steps
+from tdal_torch.runtime.checkpoint import CheckpointManager
+from tdal_torch.runtime.logging_utils import MetricsWriter
+from tdal_torch.runtime.train_state import TrainState
 
 VEHICLE_TYPE = 1
 CYCLIST_TYPE = 4
 
 _DECODE_KEYS = ("heading_scores", "heading_residuals", "size_scores", "size_residuals",
                 "center", "box_one")
+
+
+def train_labeler(model, loss_fn, inputs_fn, state: TrainState, train_ds, val_ds,
+                  n_epoch: int, batch_size: int, logger, ckpt_dir=None, seed: int = 0,
+                  generator: torch.Generator | None = None, num_workers: int = 0):
+    """Train ``state.model`` (``model``, on its device) for ``n_epoch`` epochs.
+
+    Each epoch shuffles with numpy seed ``seed + epoch`` and drops the short last
+    batch; the train steps' draws come from ``generator`` (a ``torch.Generator`` on the
+    model's device; None makes one seeded with ``seed``). After each epoch the model
+    is evaluated on ``val_ds`` (batches padded to ``batch_size``); the best eval
+    ``iou3d_acc_07`` (``>=``, so the later of equals) is saved under ``ckpt_dir``.
+    Returns (state, best meta). Parity: static_train.py:149-165."""
+    device = next(model.parameters()).device
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(seed)
+    train_step, eval_step = make_steps(model, loss_fn, inputs_fn)
+    mgr = CheckpointManager(ckpt_dir) if ckpt_dir is not None else None
+    writer = MetricsWriter(Path(ckpt_dir) / "logs") if ckpt_dir is not None else None
+    best_acc, best_meta = -1.0, {}
+
+    def run_eval():
+        return average_metrics([eval_step(state, batch)[0] for batch in
+                                batch_iterator(val_ds, batch_size, pad_to_full=True)])
+
+    for epoch in range(n_epoch):
+        batches = parallel_batch_iterator(train_ds, batch_size, num_workers=num_workers,
+                                          shuffle=True, seed=seed + epoch, drop_last=True)
+        train_m = average_metrics([train_step(state, batch, generator)
+                                   for batch in Prefetcher(batches)])
+        logger.info(f"=== Epoch [{epoch + 1}/{n_epoch}] ===")
+        logger.info(f"[Train] loss: {train_m.get('total_loss', float('nan')):.4f}, "
+                    f"seg acc: {train_m.get('seg_acc', float('nan')):.4f}")
+        logger.info(f"[Train] Box IoU (2D/3D): {train_m.get('iou2d', 0):.4f}/"
+                    f"{train_m.get('iou3d', 0):.4f}; acc@0.7: {train_m.get('iou3d_acc_07', 0):.4f}")
+        eval_m = run_eval()
+        if writer is not None:
+            writer.write(state.step, train_m, mode="train")
+            writer.write(state.step, eval_m, mode="val")
+        logger.info(f"[Eval] loss: {eval_m.get('total_loss', float('nan')):.4f}, "
+                    f"seg acc: {eval_m.get('seg_acc', float('nan')):.4f}")
+        logger.info(f"[Eval] Box IoU (2D/3D): {eval_m.get('iou2d', 0):.4f}/"
+                    f"{eval_m.get('iou3d', 0):.4f}; acc@0.7: {eval_m.get('iou3d_acc_07', 0):.4f}")
+        acc = eval_m.get("iou3d_acc_07", 0.0)
+        if acc >= best_acc:
+            best_acc = acc
+            best_meta = {"epoch": epoch + 1, "eval_iou3d_acc": acc, **eval_m}
+            if mgr is not None:
+                mgr.save(state.step, {"model": model.state_dict()}, meta=best_meta,
+                         is_best=True)
+    return state, best_meta
 
 
 def decode_final_boxes_np(output, init_box: np.ndarray, kind: str) -> np.ndarray:
@@ -208,3 +265,49 @@ def postprocess_dynamic(track, annos: AnnoStore, final_bboxes, logger, det_annos
     if det_annos is not None:
         logger.info(f"patched {n_patched} det_annos rows")
     return metrics
+
+
+def calculate_init_iou(track, annos: AnnoStore, logger, device=None):
+    """No-learning baseline 1: the raw per-frame detection boxes against the GT.
+
+    Parity: static_init.calculate_init_iou (static_init.py:58-141)."""
+    dev = resolve_device(device)
+    preds, gts, inits, types = [], [], [], []
+    for key, value in track.items():
+        for j, t in enumerate(value["token"]):
+            inv = annos.inv_pose(t)
+            init_f = transform_box_np(np.asarray(value["bbox"][j], np.float64)[None], inv)[0]
+            obj = annos.find_object(t, value["match"][-1])
+            if obj is None:
+                continue
+            preds.append(init_f)
+            gts.append(box7_from_box9(np.asarray(obj["box"], np.float64)))
+            inits.append(init_f[6])
+            types.append(value["type"][j])
+    return _relative_iou_metrics(preds, gts, inits, types, logger, "Init", dev)
+
+
+def calculate_static_iou(track, annos: AnnoStore, logger, det_annos=None, token2idx=None,
+                         device=None):
+    """No-learning baseline 2: each track's best-score box in every one of its frames,
+    with the det_annos rows patched. Parity: static_init.calculate_static_iou
+    (static_init.py:143-241)."""
+    dev = resolve_device(device)
+    preds, gts, inits, types = [], [], [], []
+    n_patched = 0
+    for key, value in track.items():
+        best = int(np.argmax(np.stack(value["score"])))
+        best_box_global = np.asarray(value["bbox"][best], np.float64)
+        for j, t in enumerate(value["token"]):
+            inv = annos.inv_pose(t)
+            frame_box = transform_box_np(np.asarray(value["bbox"][j], np.float64)[None], inv)[0]
+            static_f = transform_box_np(best_box_global[None], inv)[0]
+            obj = annos.find_object(t, value["match"][-1])
+            n_patched += _patch_det_annos(det_annos, token2idx, t, frame_box, static_f)
+            if obj is None:
+                continue
+            preds.append(static_f)
+            gts.append(box7_from_box9(np.asarray(obj["box"], np.float64)))
+            inits.append(static_f[6])
+            types.append(value["type"][j])
+    return _relative_iou_metrics(preds, gts, inits, types, logger, "Static", dev)

@@ -1,7 +1,8 @@
-"""The detector's OneCycle schedule and its clipped, scheduled AdamW.
+"""The labelers' step decay, the detector's OneCycle schedule and their AdamW.
 
-Port of ``tdal/runtime/schedules.py`` (``one_cycle`` :41-79 and the optax chain of
-``adam_with_schedule`` :166-193). The other torchie LR policies are not ported yet.
+Port of ``tdal/runtime/schedules.py`` (``labeler_step_decay`` :21-38, ``one_cycle``
+:41-79 and the optax chain of ``adam_with_schedule`` :166-193). The other torchie LR
+policies are not ported yet.
 """
 
 from __future__ import annotations
@@ -9,6 +10,20 @@ from __future__ import annotations
 import math
 
 import torch
+
+
+def labeler_step_decay(init_lr: float, steps_per_epoch: int, step_size: int = 20,
+                       gamma: float = 0.7, eta_min: float = 1e-5):
+    """The labeler tools' per-epoch LambdaLR (tools/static_train.py:222-227) as a
+    function of the number of updates taken: init_lr * gamma^(epoch // step_size)
+    while that exceeds ``eta_min``, else init_lr * 0.01 (the reference's quirk: the
+    rate jumps to 1% of its start once the decay reaches the floor)."""
+
+    def schedule(step):
+        lr = init_lr * gamma ** ((step // steps_per_epoch) // step_size)
+        return lr if lr > eta_min else init_lr * 0.01
+
+    return schedule
 
 
 def one_cycle(lr_max: float, total_steps: int, moms=(0.95, 0.85), div_factor: float = 10.0,

@@ -1,0 +1,99 @@
+"""Detector inference and evaluation: port of ``tools/dist_test.py``.
+
+The detector over a split, in order -> ``<work_dir>/prediction.pkl`` keyed by token;
+``--speed_test`` logs the middle third's seconds per frame; ``--double_flip`` runs the
+four-variant flip TTA; ``--evaluate`` writes det_annos and the proto rows. The
+checkpoint is a ``.pt`` of ``train``'s (or the newest one in a directory). The
+two-stage branch, spatial sharding and the profiler hook are not ported yet.
+"""
+
+import argparse
+from pathlib import Path
+
+import torch
+
+from tdal_torch.data.detection import DetectionDataset
+from tdal_torch.data.waymo_schema import dump_pickle, load_pickle, reorganize_info
+from tdal_torch.models.builder import (
+    build_assigner, build_detector, build_test_cfg, build_voxel_config,
+)
+from tdal_torch.pipeline.detector_run import run_inference
+from tdal_torch.pipeline.track_extraction import create_pd_detection
+from tdal_torch.runtime.config import Config
+from tdal_torch.runtime.logging_utils import create_logger, fix_seed
+from tdal_torch.runtime.train_state import TrainState
+from tdal_torch.tools._common import add_device, refuse
+
+
+def parse_args():
+    parser = argparse.ArgumentParser(description="Test a detector")
+    parser.add_argument("config", help="config file path")
+    parser.add_argument("--work_dir", required=True)
+    parser.add_argument("--checkpoint", required=True,
+                        help="a checkpoint (.pt) of train, or its checkpoints dir (the newest)")
+    parser.add_argument("--info_path", help="override infos path")
+    parser.add_argument("--split", default="val", choices=["val", "mytrain", "test", "train"])
+    parser.add_argument("--batch_size", type=int, default=None)
+    parser.add_argument("--speed_test", action="store_true")
+    parser.add_argument("--double_flip", action="store_true", help="4-variant flip TTA")
+    parser.add_argument("--evaluate", action="store_true", help="write det_annos/proto")
+    parser.add_argument("--profile_dir", default=None)
+    parser.add_argument("--spatial_shards", type=int, default=1)
+    add_device(parser)
+    return parser.parse_args()
+
+
+def checkpoint_file(path) -> Path:
+    """``path`` itself, or the newest ``step_*.pt`` in the directory ``path``."""
+    path = Path(path)
+    if path.is_dir():
+        found = sorted(path.glob("step_*.pt"))
+        if not found:
+            raise FileNotFoundError(f"no step_*.pt checkpoint in {path}")
+        path = found[-1]
+    return path
+
+
+def main():
+    args = parse_args()
+    if args.profile_dir:
+        refuse("--profile_dir")
+    if args.spatial_shards > 1:
+        refuse("--spatial_shards")
+    cfg = Config.fromfile(args.config)
+    if cfg.model["type"] == "TwoStageDetector":
+        refuse("the two-stage dist_test branch")
+    work_dir = Path(args.work_dir)
+    work_dir.mkdir(parents=True, exist_ok=True)
+    logger = create_logger(work_dir / "test.log")
+    fix_seed(0)
+
+    voxel_cfg = build_voxel_config(cfg.voxel_generator, train=False)
+    model = build_detector(cfg.model, voxel_cfg, device=args.device)
+    test_cfg = build_test_cfg(cfg.test_cfg, model, voxel_cfg)
+    assigner = build_assigner(cfg.train_cfg["assigner"], model)
+    split_key = "train" if args.split in ("train", "mytrain") else "val"
+    data = cfg.data[split_key]
+    infos = load_pickle(args.info_path or data["info_path"])
+    ds = DetectionDataset(infos, data["class_names"], assigner, voxel_cfg, mode="val",
+                          nsweeps=data.get("nsweeps", 1),
+                          max_points=data.get("max_points", 200000), shuffle_points=False)
+    logger.info(f"{len(ds)} frames to run")
+
+    state = TrainState(model, None)
+    ckpt = checkpoint_file(args.checkpoint)
+    model.load_state_dict(torch.load(ckpt, map_location=next(model.parameters()).device,
+                                     weights_only=True)["model"])
+    logger.info(f"restored checkpoint: {ckpt}")
+    batch_size = args.batch_size or cfg.data.get("samples_per_gpu", 4)
+    detections = run_inference(state, ds, test_cfg, batch_size, logger,
+                               speed_test=args.speed_test, double_flip=args.double_flip)
+    dump_pickle(detections, work_dir / "prediction.pkl")
+    logger.info(f"saved prediction.pkl ({len(detections)} frames)")
+    if args.evaluate:
+        create_pd_detection(detections, reorganize_info(infos), work_dir, tracking=False,
+                            logger=logger)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,108 @@
+"""Detector training: port of ``tools/train.py``.
+
+Config-driven CenterPoint-PointPillars training on one device: the model, voxel
+generator, assigner and OneCycle'd AdamW from the config, ``train_detector`` with a
+checkpoint per epoch under ``<work_dir>/checkpoints`` and, with val infos, AP/APH
+every ``--val_every`` epochs. The data-parallel mesh, the two-stage detectors, the
+GT-aug sampler and the profiler hook are not ported yet.
+"""
+
+import argparse
+from pathlib import Path
+
+from tdal_torch.data.detection import DetectionDataset
+from tdal_torch.data.waymo_schema import load_pickle
+from tdal_torch.models.builder import (
+    build_assigner, build_detector, build_test_cfg, build_voxel_config,
+)
+from tdal_torch.pipeline.detector_run import train_detector
+from tdal_torch.runtime.config import Config
+from tdal_torch.runtime.logging_utils import create_logger, fix_seed
+from tdal_torch.runtime.schedules import adam_with_schedule, one_cycle
+from tdal_torch.runtime.train_state import TrainState, param_count
+from tdal_torch.tools._common import add_device, refuse
+
+
+def parse_args():
+    parser = argparse.ArgumentParser(description="Train a detector")
+    parser.add_argument("config", help="train config file path")
+    parser.add_argument("--work_dir", help="the dir to save logs and models")
+    parser.add_argument("--info_path", help="override train infos path")
+    parser.add_argument("--batch_size", type=int, default=None)
+    parser.add_argument("--total_epochs", type=int, default=None)
+    parser.add_argument("--seed", type=int, default=None)
+    parser.add_argument("--no_data_parallel", action="store_true",
+                        help="accepted for the tools' interface: the port trains on one device")
+    parser.add_argument("--resume_from", default=None, help="a checkpoint (.pt) to resume")
+    parser.add_argument("--val_info_path", help="val infos for in-training eval "
+                        "(overrides cfg.data.val.info_path)")
+    parser.add_argument("--val_every", type=int, default=1, help="val every N epochs")
+    parser.add_argument("--val_max_frames", type=int, default=None)
+    parser.add_argument("--no_val", action="store_true", help="disable in-training val")
+    parser.add_argument("--profile_dir", default=None)
+    add_device(parser)
+    return parser.parse_args()
+
+
+def main():
+    args = parse_args()
+    if args.profile_dir:
+        refuse("--profile_dir")
+    cfg = Config.fromfile(args.config)
+    if cfg.model["type"] == "TwoStageDetector":
+        refuse("two-stage training")
+    pre = cfg.get("train_preprocessor", {})
+    if (pre.get("db_sampler") or {}).get("enable", False):
+        refuse("the GT-aug database sampler")
+    work_dir = Path(args.work_dir or cfg.get("work_dir", "./work_dirs/train"))
+    work_dir.mkdir(parents=True, exist_ok=True)
+    logger = create_logger(work_dir / "train.log")
+    seed = fix_seed(args.seed if args.seed is not None else 0)
+
+    voxel_cfg = build_voxel_config(cfg.voxel_generator, train=True)
+    model = build_detector(cfg.model, voxel_cfg, device=args.device, seed=seed)
+    test_cfg = build_test_cfg(cfg.test_cfg, model, voxel_cfg)
+    assigner = build_assigner(cfg.train_cfg["assigner"], model)
+    data_train = cfg.data["train"]
+    infos = load_pickle(args.info_path or data_train["info_path"])
+    train_ds = DetectionDataset(
+        infos, data_train["class_names"], assigner, voxel_cfg, mode="train",
+        nsweeps=data_train.get("nsweeps", 1), max_points=data_train.get("max_points", 200000),
+        global_rot_noise=tuple(pre.get("global_rot_noise", (-0.785398, 0.785398))),
+        global_scale_noise=tuple(pre.get("global_scale_noise", (0.95, 1.05))),
+        shuffle_points=pre.get("shuffle_points", True), seed=seed)
+    logger.info(f"{len(train_ds)} train frames")
+
+    val_ds = None
+    val_info_path = args.val_info_path or cfg.data.get("val", {}).get("info_path")
+    if val_info_path and not args.no_val:
+        val_ds = DetectionDataset(
+            load_pickle(val_info_path), data_train["class_names"], assigner, voxel_cfg, mode="val",
+            nsweeps=data_train.get("nsweeps", 1),
+            max_points=data_train.get("max_points", 200000))
+        logger.info(f"{len(val_ds)} val frames (every {args.val_every} epochs)")
+
+    batch_size = args.batch_size or cfg.data.get("samples_per_gpu", 4)
+    total_epochs = args.total_epochs or cfg.total_epochs
+    total_steps = max(1, len(train_ds) // batch_size) * total_epochs
+    lr, mom = one_cycle(cfg.lr_config["lr_max"], total_steps,
+                        moms=tuple(cfg.lr_config.get("moms", (0.95, 0.85))),
+                        div_factor=cfg.lr_config.get("div_factor", 10.0),
+                        pct_start=cfg.lr_config.get("pct_start", 0.4))
+    opt = adam_with_schedule(model.parameters(), lr, cfg.optimizer.get("wd", 0.01),
+                             cfg.get("grad_clip", {}).get("max_norm"), mom)
+    logger.info(f"detector params: {param_count(model)}")
+    state = TrainState(model, opt)
+    if args.resume_from:
+        state.load(args.resume_from)
+        logger.info(f"resumed from {args.resume_from} at step {state.step}")
+    head = cfg.model["bbox_head"]
+    train_detector(state, train_ds, head.get("code_weights", [1.0] * 8), total_epochs,
+                   batch_size, logger, work_dir, weight=head.get("weight", 2.0),
+                   seed=seed, val_ds=val_ds, test_cfg=test_cfg, val_every=args.val_every,
+                   val_max_frames=args.val_max_frames)
+    logger.info("Done.")
+
+
+if __name__ == "__main__":
+    main()

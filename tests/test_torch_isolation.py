@@ -85,7 +85,7 @@ def test_default_device_is_cuda_and_raises_without_a_card(no_card):
 def test_entry_points_refuse_the_cpu_unless_asked(no_card, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         factories.make_labeler("one_box_est")
-    model, inputs_fn, kind = factories.make_labeler("one_box_est", device="cpu")
+    model, _, inputs_fn, kind = factories.make_labeler("one_box_est", device="cpu")
     dataset = [{"pts": np.zeros((16, 3), np.float32), "init_box": np.zeros(7, np.float32),
                 "bbox_gt": np.zeros(7, np.float32)}]
     with pytest.raises(RuntimeError, match="CUDA"):

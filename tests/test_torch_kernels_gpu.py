@@ -334,3 +334,66 @@ def test_detector_train_step_on_card_runs_the_kernels(cuda):
                 "conv3x3_dgrad_act": chained, "conv3x3_wgrad": sites}
         losses.append(float(total.detach()))
     assert np.isfinite(losses[0]) and losses[0] == pytest.approx(losses[1], rel=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model_type", ["one_box_est", "dynamic"])
+def test_labeler_train_step_on_card_matches_the_cpu(cuda, model_type):
+    """One labeler train step on the card (plain layers: K1/K2 are eval-only) against
+    the same step on a CPU copy, by chip_smoke's phase-8 check (loss, gradients within a
+    measured noise floor, BN running statistics, parameters after the update), and its
+    control (torch's unbiased running variance) fails."""
+    import numpy as np
+
+    import chip_smoke
+    from tdal_torch.pipeline.factories import make_labeler
+
+    model, loss_fn, _, _ = make_labeler(model_type, 128, device=cuda, seed=3)
+    rng = np.random.default_rng(5)
+    b, n = 8, (512 if model_type != "dynamic" else 5 * 128)
+    box = lambda: np.concatenate([rng.normal(size=(b, 3)), rng.uniform(1, 5, (b, 3)),  # noqa: E731
+                                  rng.uniform(-3, 3, (b, 1))], 1).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.asarray(a))  # noqa: E731
+    if model_type == "dynamic":
+        inputs = [t(rng.normal(size=(b, n, 4)).astype(np.float32)),
+                  t(rng.normal(size=(b, 101, 8)).astype(np.float32)), t(box())]
+    else:
+        inputs = [t(rng.normal(size=(b, n, 3)).astype(np.float32)), t(box()), t(box())]
+    labels = {"mask_label": t((rng.random((b, n)) < 0.5).astype(np.float32)),
+              "center_label": t(rng.normal(size=(b, 3)).astype(np.float32)),
+              "heading_class_label": t(rng.integers(0, 12, b).astype(np.int32)),
+              "heading_residuals_label": t(rng.uniform(-0.25, 0.25, b).astype(np.float32)),
+              "size_class_label": t(rng.integers(0, 3, b).astype(np.int32)),
+              "size_residuals_label": t(rng.normal(0, 0.3, (b, 3)).astype(np.float32))}
+    out = chip_smoke.check_labeler_step_against_cpu(model_type, model, loss_fn, inputs,
+                                                    labels, cuda)
+    assert out["sound"]["grad_err_over_tol"] <= 1 and out["control"]["stat_rel_err"] > 1e-3
+
+
+@pytest.mark.gpu
+def test_offboard_label_chain_on_card_runs_the_kernels(cuda, tmp_path):
+    """Stages 2-6 of the offboard driver on the card from fabricated detections: tracks,
+    a static/dynamic split and labeled boxes, with K1 and K2 launched once per predict
+    batch."""
+    import logging
+
+    from tdal_torch.data.synthetic import fabricate_detections, make_synthetic_dataset
+    from tdal_torch.data.waymo_schema import AnnoStore, reorganize_info
+    from tdal_torch.pipeline.factories import make_labeler
+    from tdal_torch.pipeline.offboard import label_chain
+
+    infos, scenes = make_synthetic_dataset(tmp_path / "seg", n_scenes=1, n_frames=10, seed=0,
+                                           n_static=3, n_dynamic=3, points_per_object=128,
+                                           n_background=2000)
+    info_map = reorganize_info(infos)
+    annos = AnnoStore(info_map)
+    labelers = tuple((m, i, k) for m, _, i, k in (make_labeler("one_box_est", device=cuda),
+                                                   make_labeler("dynamic", device=cuda)))
+    before = dict(fp.launches)
+    res = label_chain(fabricate_detections(scenes, annos), info_map, annos, labelers,
+                      tmp_path / "out", logging.getLogger("t"), score_thresh=0.5,
+                      npoints_static=512, npoints_dynamic=128, predict_batch=8)
+    counts = res["counts"]
+    assert counts["static_boxes_labeled"] > 0 and counts["dynamic_boxes_labeled"] > 0, counts
+    assert {k: fp.launches[k] - before[k] for k in before} == {
+        k: counts["predict_batches"] for k in before}

@@ -112,9 +112,13 @@ def test_labeler_forward_matches_flax(kind):
 
 
 def test_labelers_refuse_train_mode():
+    """Training needs its random draws (gather noise, dropout mask) as inputs: a
+    train-mode forward without them is refused, not drawn behind the caller's back."""
     model = StaticLabelerOneBox()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="keep-mask"):
         model(torch.zeros(1, 8, 3), torch.zeros(1, 7))
+    with pytest.raises(ValueError, match="gather noise"):
+        model(torch.zeros(1, 8, 3), torch.zeros(1, 7), keep=torch.ones(1, 8, 128, dtype=torch.bool))
 
 
 def test_codecs_match_tdal():

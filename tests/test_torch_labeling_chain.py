@@ -174,7 +174,7 @@ def _labelers(kind, j, t):
     j_boxes = jrun.predict_final_boxes(j_model, state, j_ds, j_inputs, j_kind, batch_size=BATCH)
 
     t_tracks, t_ds = dataset(ttd, t)
-    t_model, t_inputs, t_kind = tfac.make_labeler(model_type, device="cpu")
+    t_model, _, t_inputs, t_kind = tfac.make_labeler(model_type, device="cpu")
     load_flax(t_model, params, bs)
     t_boxes = trun.predict_final_boxes(t_model, t_ds, t_inputs, t_kind, batch_size=BATCH,
                                        device="cpu")
