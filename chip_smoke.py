@@ -33,7 +33,9 @@ nothing of JAX or of ``tdal``, and exits non-zero on any failure. Phases:
    dgrad of the chained sites) against their plain twins at the five stride-1 3x3 conv
    shapes of PointPillars training on the Waymo config (B=4: the RPN stages
    468^2x64, 234^2x128, 117^2x256, the head's shared conv 468^2x384->64 and its branch
-   conv 468^2x64->320; K7 at the four with an input affine) and a ragged 37x41 image
+   conv 468^2x64->320; K7 at the four with an input affine), three of VoxelNet's (B=4:
+   the RPN stages 188^2x128 and 94^2x256, the head's shared conv 188^2x512->64; K7 at
+   the two RPN stages) and a ragged 37x41 image
    with positive shifts (a halo leak shows there), in f32 and bf16 and with the input
    affine on and off; kernel, twin and cuDNN times (CUDA events, warm, median of 10;
    cuDNN with ``torch.backends.cudnn.benchmark`` on, so its own fastest algorithm, in
@@ -52,7 +54,8 @@ nothing of JAX or of ``tdal``, and exits non-zero on any failure. Phases:
    producer's BN + ReLU) and K4 4 times (the other 4). The step alone is timed, and
    one more step runs under ``torch.profiler``: device time by kernel name (top 10),
    the conv kernels' share of the step and the device's idle share.
-   Then one train step on the card is held against the same step on a CPU copy
+   Then one train step on the card (on the batch's first 2 frames: the CPU copy's six
+   steps at batch 4 took 406-527 s) is held against the same step on a CPU copy
    (plain versions, no kernel): the loss, the BN running statistics, the gradients
    within 8x a noise floor measured on the CPU copy (the change under a permutation
    of the batch or under two rounding-level changes of the weights, each taken both
@@ -89,15 +92,36 @@ nothing of JAX or of ``tdal``, and exits non-zero on any failure. Phases:
    (the 90th-percentile score threshold), extract (GT match at IoU 0.25), the motion
    split and both trained labelers, with frames/s, each stage's seconds and the counts;
    K1/K2 must launch once per predict batch;
-9. one line ``{"kernels": [...]}`` (K1, K2, K3, K4, K5/K6, K7, and K4 again as the
-   benchmark prototype's function), each kernel's ``launches`` from phase 8;
-10. the last line ``{"ok": true, "device": {...}}``. The seconds each phase took are
+9. sparse VoxelNet and the two-stage detector on the Waymo configs. (a) Training of
+   ``configs/waymo/voxelnet/waymo_centerpoint_voxelnet_3x.py`` at full width (the
+   40 x 1504 x 1504 grid, the sparse backbone, 384 BEV channels into the RPN, 512 out),
+   f32, batch 4, through ``train_detector`` on 8 synthetic frames of 160000 background
+   points (each must hold 150000 points and fill 100000 of the 180000 voxels; the
+   occupied voxels at each backbone level are printed against their caps): a warm
+   epoch, then 2 epochs with the conv launch counters from 0 (per step K3 and K5/K6
+   13, K7 10, K4 3), the step alone, the sparse backbone alone, one profiled step
+   (device time by category and the idle share), and one step at batch 2 held against
+   a CPU copy as phase 6 holds its own (plus the running statistics against their own
+   noise floor), with a control whose subm backward drops a tap (must fail) and one
+   with the unbiased running variance (printed). (b) ``run_inference`` at the test
+   settings (400000 voxels, NMS pre 4096 / post 500 at IoU 0.7, score 0.1) with (a)'s
+   weights over 24 synthetic frames: frames/s, forward and decode + NMS times, peak
+   memory, and two frames held against a CPU copy as phase 7 holds its batch. (c) The
+   frozen-first-stage two-stage config (first stage bf16 from (a)'s weights, RoIHead
+   512 x 5 inputs, 128 RoIs an image): ``train_two_stage`` for an epoch, the step
+   alone, the first stage unchanged, predict's frames/s, and one RoI head step against
+   a CPU copy on the same RoIs, features, draws and dropout masks, with the unbiased
+   running variance as a control that must fail;
+10. one line ``{"kernels": [...]}`` (K1, K2, K3, K4, K5/K6, K7, and K4 again as the
+   benchmark prototype's function), each kernel's ``launches`` from phases 8 and 9;
+11. the last line ``{"ok": true, "device": {...}}``. The seconds each phase took are
    printed before the ``kernels`` line.
 
 ``--noise-probe STATES`` builds and then runs only ``noise_probe``: on the card, how
 often phase 6's comparison would fail a step that differs by rounding alone.
 ``--offboard-only`` builds and then runs only phase 8, from a fresh detector (seed 0)
-in place of phase 6's weights, and prints no ``kernels`` line.
+in place of phase 6's weights, and prints no ``kernels`` line; ``--voxelnet-only``
+builds and then runs only phase 9.
 """
 
 from __future__ import annotations
@@ -570,6 +594,10 @@ CONV_SHAPES = {
     "head shared": (4, 468, 468, 384, 64),
     "head branch": (4, 468, 468, 64, 320),
     "ragged halo": (2, 37, 41, 48, 80),
+    # the VoxelNet RPN's stride-1 sites at 188^2 and 94^2, and its head's shared conv
+    "vn rpn stage 1": (4, 188, 188, 128, 128),
+    "vn rpn stage 2": (4, 94, 94, 256, 256),
+    "vn head shared": (4, 188, 188, 512, 64),
 }
 CONV_MAIN = "rpn stage 1 f32 in_act"  # the kernels line's case: a chained RPN layer
 # max |kernel - twin| / max(1, max |twin|): f32 outputs and every f32 accumulator
@@ -609,7 +637,7 @@ def library_calls(inp, shape_name, mode) -> dict:
         "conv3x3_fwd": lambda: conv2d_input(x_cl.shape, w_oihw, gy_cl, padding=1),
         "conv3x3_wgrad": lambda: conv2d_weight(x_cl, w_oihw.shape, gy_cl, padding=1),
     }
-    if shape_name != "head shared":
+    if not shape_name.endswith("head shared"):  # the shared conv is never chained
         calls["conv3x3_dgrad_act"] = lambda: dgrad_act_epilogue(
             conv2d_input(x_cl.shape, w_oihw, gy_cl, padding=1).permute(0, 2, 3, 1), x,
             inp["s"], inp["t"])
@@ -753,7 +781,7 @@ def phase_conv(device) -> dict:
                         conv_work(name, b, h, w, c, co, x.element_size()), bf16)
                     if not all(e[1] <= e[2] for e in errs):
                         failures.append(f"{name} {case}: {json.dumps(r)}")
-                if in_act and shape_name != "head shared":  # K7: the chained sites' dgrad
+                if in_act and not shape_name.endswith("head shared"):  # K7: chained dgrad
                     name = "conv3x3_dgrad_act"
                     dx, st = cv.conv3x3_dgrad_act(gy, wf, x, s, t)
                     dx_t, st_t = cv.conv3x3_dgrad_act_plain(gy, wf, x, s, t)
@@ -808,6 +836,9 @@ PP_CONFIG = Path("configs/waymo/pp/waymo_centerpoint_pp_two_pfn_stride1_3x.py")
 PP_DATA = dict(n_scenes=1, n_frames=8, seed=0, n_static=10, n_dynamic=10,
                points_per_object=256, n_background=150000)
 PP_BATCH, PP_WARM_EPOCHS, PP_TIMED_EPOCHS = 4, 1, 2
+# the card-vs-CPU step check's batch: the first two frames of the timed batch (its six
+# CPU steps at batch 4 took 406-527 s of the script's 1200)
+PP_CHECK_BATCH = 2
 PP_TIMED = PP_TIMED_EPOCHS * PP_DATA["n_frames"] // PP_BATCH  # steps
 # (shape of phase 5, input affine on, sites per step): each stage's stride-1 entry
 # (stage 1) or first layer after the strided entry takes no input affine
@@ -901,35 +932,51 @@ def without_second_moment_grad():
 PERTURBATIONS = [(sign, seed) for seed in (1, 2) for sign in (1, -1)]
 NOISE_TERMS = ("permutation", *(f"{'+' if sign > 0 else '-'}2^-19 weights, draw {seed}"
                                  for sign, seed in PERTURBATIONS))
-BATCH_PERMUTATION = [2, 0, 3, 1]
+BATCH_PERMUTATIONS = {4: [2, 0, 3, 1], 2: [1, 0]}  # by batch size
 
 
 def permuted(batch):
-    """The batch's training inputs and targets in ``BATCH_PERMUTATION``'s order."""
-    return {k: ([a[BATCH_PERMUTATION] for a in v] if isinstance(v, list)
-                else v[BATCH_PERMUTATION])
+    """The batch's training inputs and targets reordered (``BATCH_PERMUTATIONS``)."""
+    perm = BATCH_PERMUTATIONS[len(batch["points"])]
+    return {k: ([a[perm] for a in v] if isinstance(v, list) else v[perm])
             for k, v in batch.items() if k in ("points", "hm", "anno_box", "ind", "mask",
                                                "cat")}
 
 
-def noise_grads_of(model, batch, device, cfg, n_steps_total):
-    """The gradients of ``NOISE_TERMS``' steps of ``model`` on ``device``, in order."""
-    return [step_with_grads(model, permuted(batch), device, cfg, n_steps_total)[1],
+def first_frames(batch, n):
+    """The training inputs and targets of the batch's first ``n`` frames."""
+    return {k: ([a[:n] for a in v] if isinstance(v, list) else v[:n])
+            for k, v in batch.items() if k in ("points", "hm", "anno_box", "ind", "mask",
+                                               "cat")}
+
+
+def noise_steps_of(model, batch, device, cfg, n_steps_total):
+    """``step_with_grads`` of ``NOISE_TERMS``' steps of ``model`` on ``device``, in
+    order."""
+    return [step_with_grads(model, permuted(batch), device, cfg, n_steps_total),
             *(step_with_grads(model, batch, device, cfg, n_steps_total,
-                              perturb=sign * ULP_PERTURBATION, perturb_seed=seed)[1]
+                              perturb=sign * ULP_PERTURBATION, perturb_seed=seed)
               for sign, seed in PERTURBATIONS)]
 
 
-def compare_steps(model, card, cpu, noise_grads, lr0):
+def noise_grads_of(model, batch, device, cfg, n_steps_total):
+    """The gradients of ``NOISE_TERMS``' steps of ``model`` on ``device``, in order."""
+    return [step[1] for step in noise_steps_of(model, batch, device, cfg, n_steps_total)]
+
+
+def compare_steps(model, card, cpu, noise_grads, lr0, noise_states=None):
     """The card's train step (``card``: loss, gradients, state, library error) against
     the CPU's (``cpu``), with the noise floor from the CPU's gradients ``noise_grads``
     (one dict for each of ``NOISE_TERMS``). Returns (worst readings, failures, leaves);
-    each reading but the loss's is an error over what is allowed, so above 1 fails."""
+    each reading but the loss's is an error over what is allowed, so above 1 fails.
+    With ``noise_states`` (the CPU's states after the ``NOISE_TERMS``' steps) each BN
+    running statistic is also held to ``GRAD_NOISE_MARGIN`` times its own noise floor
+    (``stat_err_over_tol``), beside the 1e-4 relative bound."""
     loss_gpu, g_gpu, s_gpu, lib_gpu = card
     loss_cpu, g_cpu, s_cpu, lib_cpu = cpu
     worst = {"loss_rel_err": abs(loss_gpu - loss_cpu) / abs(loss_cpu),
              "grad_err_over_tol": 0.0, "param_err_over_allowed": 0.0, "stat_rel_err": 0.0,
-             **{f"grad_err_over_tol_{t}": 0.0 for t in NOISE_TERMS}}
+             "stat_err_over_tol": 0.0, **{f"grad_err_over_tol_{t}": 0.0 for t in NOISE_TERMS}}
     failures, leaves = [], []
     if not worst["loss_rel_err"] <= 1e-4:
         failures.append(f"loss {loss_gpu} against {loss_cpu}")
@@ -970,14 +1017,36 @@ def compare_steps(model, card, cpu, noise_grads, lr0):
             worst["stat_rel_err"] = max(worst["stat_rel_err"], rel)
             if rel > 1e-4:
                 failures.append(f"BN statistic {k}: rel err {rel:.3e}")
+            if noise_states is not None:
+                err = float((s_gpu[k] - s_cpu[k]).abs().max())
+                noise = max(float((s_cpu[k] - n[k]).abs().max()) for n in noise_states)
+                # at least 4 f32 rounding steps of the statistic: a running average
+                # that moves by less than one step shows no noise on the CPU
+                tol = max(2.0**-21 * float(s_cpu[k].abs().max()), GRAD_NOISE_MARGIN * noise)
+                worst["stat_err_over_tol"] = max(worst["stat_err_over_tol"], err / tol)
+                if err > tol:
+                    failures.append(f"BN statistic {k}: {err:.3e} > {tol:.3e} (noise "
+                                    f"{noise:.3e})")
     return worst, failures, leaves
 
 
 def check_step_against_cpu(model, model_bf16, batch, device, cfg, n_steps_total) -> dict:
-    """The same train step on the card and on a CPU copy (plain versions), and two
-    controls that the same comparison must find wrong: the card's step with
-    ``without_second_moment_grad`` and the step of ``model_bf16`` (the same weights,
-    bf16 activations) on the card."""
+    """Phase 6's check: the same train step on the card and on a CPU copy (plain
+    versions), and two controls that the same comparison must find wrong in the
+    gradients: the card's step with ``without_second_moment_grad`` and the step of
+    ``model_bf16`` (the same weights, bf16 activations) on the card."""
+    return check_step_with_controls(
+        model, batch, device, cfg, n_steps_total,
+        {"no 2*y*gss": (model, without_second_moment_grad, "grad_err_over_tol"),
+         "bf16 model": (model_bf16, contextlib.nullcontext, "grad_err_over_tol")})
+
+
+def check_step_with_controls(model, batch, device, cfg, n_steps_total, controls,
+                             stat_noise: bool = False) -> dict:
+    """The same train step of ``model`` on the card and on a CPU copy (plain versions),
+    held by ``compare_steps``, and ``controls``: name -> (model, context manager to run
+    its card step in, the reading that must exceed 1, or None for a control whose
+    readings are printed only)."""
     def card_step(m):
         loss, g, state, lr0, lib = step_with_grads(m, batch, device, cfg, n_steps_total)
         return (loss, g, state, lib), lr0
@@ -985,43 +1054,50 @@ def check_step_against_cpu(model, model_bf16, batch, device, cfg, n_steps_total)
     t0 = time.perf_counter()
     card, lr0 = card_step(model)
     t_gpu = time.perf_counter() - t0
-    with without_second_moment_grad():
-        no_gss = card_step(model)[0]
-    bf16 = card_step(model_bf16)[0]
+    control_steps = {}
+    for name, (m, context, _) in controls.items():
+        with context():
+            control_steps[name] = card_step(m)[0]
     t0 = time.perf_counter()
     cpu = torch.device("cpu")
     loss_cpu, g_cpu, s_cpu, _, lib_cpu = step_with_grads(model, batch, cpu, cfg,
                                                          n_steps_total)
-    noise_grads = noise_grads_of(model, batch, cpu, cfg, n_steps_total)
+    noise = noise_steps_of(model, batch, cpu, cfg, n_steps_total)
+    noise_grads = [n[1] for n in noise]
+    noise_states = [n[2] for n in noise] if stat_noise else None
+    del noise
     t_cpu = time.perf_counter() - t0
     reference = (loss_cpu, g_cpu, s_cpu, lib_cpu)
 
-    worst, failures, leaves = compare_steps(model, card, reference, noise_grads, lr0)
+    worst, failures, leaves = compare_steps(model, card, reference, noise_grads, lr0,
+                                            noise_states)
     lib_gpu = card[3]
-    log(f"  one step on the card against a CPU copy: loss {card[0]:.6f} / {loss_cpu:.6f}; "
+    log(f"  one step on the card against a CPU copy (batch {len(batch['points'])}): loss "
+        f"{card[0]:.6f} / {loss_cpu:.6f}; "
         f"worst gradient error {worst['grad_err_over_tol']:.3f} of its tolerance "
         f"({GRAD_NOISE_MARGIN}x the noise floor or 1e-4 of the leaf's largest gradient); "
         f"worst parameter error {worst['param_err_over_allowed']:.3f} of allowed; BN "
         f"statistics rel err {worst['stat_rel_err']:.2e} (tol 1e-4); one step on the "
         f"card {t_gpu:.1f} s, {1 + len(NOISE_TERMS)} on the CPU {t_cpu:.1f} s")
-    for ratio, k, err, scale, noise in sorted(leaves, reverse=True)[:3]:
+    for ratio, k, err, scale, nz in sorted(leaves, reverse=True)[:3]:
         log(f"    gradient {k}: error {err:.3e} = {ratio:.3f} of tolerance; largest "
-            f"gradient {scale:.3e}, noise floor {noise:.3e}")
+            f"gradient {scale:.3e}, noise floor {nz:.3e}")
     for k in lib_gpu:
         log(f"    {k}: f32 library weight gradient against float64, card "
             f"{lib_gpu[k]:.3e}, CPU {lib_cpu[k]:.3e}")
     readings = {"sound": worst}
-    for name, c in (("no 2*y*gss", no_gss), ("bf16 model", bf16)):
-        readings[name], c_fail, c_leaves = compare_steps(model, c, reference, noise_grads,
-                                                         lr0)
+    for name, (_, _, key) in controls.items():
+        readings[name], c_fail, c_leaves = compare_steps(
+            model, control_steps[name], reference, noise_grads, lr0, noise_states)
         top = sorted(c_leaves, reverse=True)[0]
-        log(f"  control {name}: {len(c_fail)} failures; worst gradient {top[1]} at "
-            f"{top[0]:.3f} of its tolerance (error {top[2]:.3e}, noise floor {top[4]:.3e})")
-        if not readings[name]["grad_err_over_tol"] > 1:
-            failures.append(f"control {name}: its gradients pass the comparison")
+        log(f"  control {name}: {len(c_fail)} failures ({c_fail[:2]}); worst gradient "
+            f"{top[1]} at {top[0]:.3f} of its tolerance (error {top[2]:.3e}, noise floor "
+            f"{top[4]:.3e}); " + (f"it must fail on {key}" if key else "printed only"))
+        if key and not readings[name][key] > 1:
+            failures.append(f"control {name}: its {key} passes the comparison")
     keys = ["loss_rel_err", "grad_err_over_tol",
             *(f"grad_err_over_tol_{t}" for t in NOISE_TERMS), "param_err_over_allowed",
-            "stat_rel_err"]
+            "stat_rel_err", *(["stat_err_over_tol"] if stat_noise else [])]
     log("    reading                                      " + "".join(
         f"{n:>14}" for n in readings))
     for k in keys:
@@ -1072,6 +1148,15 @@ CONV_KERNEL_NAMES = ("conv3x3_kernel", "wgrad_kernel", "stats_reduce_kernel",
                      "wgrad_reduce_kernel")
 
 
+def union_ms(spans) -> float:
+    """ms covered by the union of the (start, end) device intervals, in microseconds."""
+    busy_us, reach = 0.0, -math.inf
+    for a, b in sorted(spans):
+        busy_us += max(0.0, b - max(a, reach))
+        reach = max(reach, b)
+    return busy_us / 1e3
+
+
 def profile_step(step, state, batch) -> dict:
     """One train step under ``torch.profiler`` (CPU and CUDA activities): device time by
     kernel name, the conv kernels' summed share and the device's idle share of the
@@ -1095,11 +1180,7 @@ def profile_step(step, state, batch) -> dict:
         log("  torch.profiler showed no device time on this machine: the derived conv "
             "share below stands alone")
         return dict(device_events=0, wall_ms=wall_ms)
-    busy_us, reach = 0.0, -math.inf  # the union of the device intervals
-    for a, b in sorted(spans):
-        busy_us += max(0.0, b - max(a, reach))
-        reach = max(reach, b)
-    busy_ms = busy_us / 1e3
+    busy_ms = union_ms(spans)
     conv_ms = sum(v for k, v in by_name.items() if any(n in k for n in CONV_KERNEL_NAMES))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     out = dict(device_events=len(spans), wall_ms=wall_ms, device_busy_ms=busy_ms,
@@ -1189,7 +1270,8 @@ def phase_train(device) -> dict:
         voxel_cfg = build_voxel_config(cfg.voxel_generator, train=True)
         model_bf16 = build_detector(dict(cfg.model, dtype="bfloat16"), voxel_cfg, seed=0)
         model_bf16.load_state_dict(model.state_dict())
-        check = check_step_against_cpu(model, model_bf16, batch, device, cfg, total_steps)
+        check = check_step_against_cpu(model, model_bf16, first_frames(batch, PP_CHECK_BATCH),
+                                       device, cfg, total_steps)
         del model_bf16
     return dict(launches=launches, losses=losses, step_ms=step_ms, step_s=step_s,
                 profiled_step=profiled,
@@ -1900,6 +1982,515 @@ def phase_offboard(device, cfg, trained) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: sparse VoxelNet training and inference, and the frozen-first-stage
+# two-stage detector, on the Waymo configs
+# ---------------------------------------------------------------------------
+
+VN_CONFIG = Path("configs/waymo/voxelnet/waymo_centerpoint_voxelnet_3x.py")
+VN_TWO_STAGE = Path("configs/waymo/voxelnet/two_stage/"
+                    "waymo_centerpoint_voxelnet_two_stage_bev_5point_ft_6epoch_freeze.py")
+VN_DATA = dict(n_scenes=1, n_frames=8, seed=0, n_static=10, n_dynamic=10,
+               points_per_object=256, n_background=160000)
+VN_TEST_DATA = dict(VN_DATA, n_frames=24, seed=1)
+VN_BATCH, VN_WARM_EPOCHS, VN_TIMED_EPOCHS = 4, 1, 2
+VN_TIMED = VN_TIMED_EPOCHS * VN_DATA["n_frames"] // VN_BATCH  # steps
+VN_CHECK_BATCH = 2  # the card-vs-CPU step check's batch: the CPU copy at the full grid
+VN_MIN_POINTS, VN_MIN_VOXELS = 150000, 100000  # each training frame holds at least
+# the 13 stride-1 3x3 sites of the VoxelNet RPN and head: stage 1's entry (384->128,
+# 188^2) and its 5 layers (128->128), stage 2's 5 layers (256->256, 94^2) after its
+# strided entry, the head's shared conv (512->64) and the SepHead's fused first conv
+# (64->320). 10 take their producer's BN + ReLU (chained: K7 is their dgrad), the
+# entry, stage 2's first layer and the shared conv do not (K4)
+VN_SITES, VN_CHAINED = 13, 10
+VN_LAUNCHES = {"conv3x3_fwd_stats": VN_SITES, "conv3x3_fwd": VN_SITES - VN_CHAINED,
+               "conv3x3_dgrad_act": VN_CHAINED, "conv3x3_wgrad": VN_SITES}
+# the profiled step's device time by kernel name, first match first: the conv kernels
+# K3-K7, the sparse backbone's matmuls (cuBLAS's GEMMs, the only ones of the step),
+# cuDNN's convs, the sparse backbone's gathers (index_select) and its sort / search /
+# scan kernels
+VN_CATEGORIES = (
+    ("conv kernels K3-K7", CONV_KERNEL_NAMES),
+    ("sparse: matmuls", ("cublas", "sgemm")),
+    ("cuDNN convs", ("conv", "fprop", "dgrad", "wgrad", "cudnn", "xmma_", "implicit")),
+    ("sparse: gathers", ("index", "gather")),
+    ("sparse: sort / search / scan", ("sort", "search", "scan", "radix", "cub::")),
+)
+
+
+def device_time_by_category(step, state, batch) -> dict:
+    """One train step under ``torch.profiler``: device ms by ``VN_CATEGORIES`` (first
+    matching name wins; the rest is everything else: BN, ReLU, losses, AdamW), the busy
+    time and the device's idle share of the step's synchronised wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    cats = {name: 0.0 for name, _ in VN_CATEGORIES}
+    cats["rest"] = 0.0
+    spans, by_name = [], {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        r = evt.time_range
+        ms = (r.end - r.start) / 1e3
+        spans.append((r.start, r.end))
+        by_name[evt.name] = by_name.get(evt.name, 0.0) + ms
+        low = evt.name.lower()
+        cat = next((name for name, keys in VN_CATEGORIES
+                    if any(k.lower() in low for k in keys)), "rest")
+        cats[cat] += ms
+    if not spans:
+        log("  torch.profiler showed no device time on this machine")
+        return dict(device_events=0, wall_ms=wall_ms)
+    busy_ms = union_ms(spans)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    log(f"  profiled step: {wall_ms:.1f} ms wall (profiler on), device busy {busy_ms:.1f} "
+        f"ms, idle share {1 - busy_ms / wall_ms:.3f}; device ms by category: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in cats.items()))
+    for k, v in top:
+        log(f"    {v:9.3f} ms  {k[:110]}")
+    return dict(device_events=len(spans), wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_idle_share=1 - busy_ms / wall_ms, by_category_ms=cats,
+                top=[(k[:120], v) for k, v in top])
+
+
+@contextlib.contextmanager
+def subm_backward_drops_a_tap(tap: int = 4):
+    """A wrong backward for a control: every submanifold conv's d feats leaves out one
+    tap's term."""
+    from tdal_torch.ops import sparse_conv as sc
+
+    fn = sc._GatherConv
+    original = fn.__dict__["backward"]
+
+    def backward(ctx, g):
+        if not ctx.subm:
+            return original.__func__(ctx, g)
+        feats, weights, fwd, _ = ctx.saved_tensors
+        w = weights.flip(0).transpose(1, 2).clone()
+        w[tap] = 0
+        return (sc._pertap(g, fwd, w).to(feats.dtype),
+                sc._wgrad(feats, fwd, g).to(weights.dtype), None, None)
+
+    fn.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        fn.backward = original
+
+
+@contextlib.contextmanager
+def unbiased_running_variance():
+    """A wrong BatchNorm for a control: ``BatchNorm`` and ``MaskedBatchNorm`` feed the
+    unbiased batch variance (n / (n - 1), torch's ``nn.BatchNorm*``) to their running
+    variance."""
+    from tdal_torch.models import layers
+
+    original = layers.update_running
+
+    def update_running(module, mean, var):
+        if isinstance(module, layers.BatchNorm) and module.training:
+            var = var * (module._rows / (module._rows - 1.0))
+        original(module, mean, var)
+
+    def counting(forward):
+        def wrapped(self, x, *args):
+            mask = args[0] if args else None
+            self._rows = (mask.sum(dim=tuple(range(mask.dim()))).float()
+                          if mask is not None else x.numel() / x.shape[-1])
+            return forward(self, x, *args)
+        return wrapped
+
+    fwd_bn, fwd_mbn = layers.BatchNorm.forward, layers.MaskedBatchNorm.forward
+    layers.update_running = update_running
+    layers.BatchNorm.forward = counting(fwd_bn)
+    layers.MaskedBatchNorm.forward = counting(fwd_mbn)
+    try:
+        yield
+    finally:
+        layers.update_running = original
+        layers.BatchNorm.forward, layers.MaskedBatchNorm.forward = fwd_bn, fwd_mbn
+
+
+def occupancy_report(model) -> list:
+    """The sparse backbone's occupied voxels per sample at each level of its last
+    forward, against each level's cap; logged."""
+    names = ["input", "level 1", "level 2", "level 3", "z-compressed"]
+    rows = []
+    for name, (counts, cap) in zip(names, model.backbone.occupancy):
+        c = [int(v) for v in counts.cpu()]
+        rows.append(dict(level=name, voxels=c, cap=cap))
+        log(f"    {name}: {c} of {cap}" + (" (overflow: the lowest keys kept)"
+                                             if max(c) >= cap else ""))
+    return rows
+
+
+def voxelnet_training(root: Path):
+    """The Waymo VoxelNet config's detector (fresh init from seed 0) on the card, its
+    train state and a synthetic training set under ``root``."""
+    from tdal_torch.data.detection import DetectionDataset
+    from tdal_torch.data.synthetic import make_synthetic_dataset
+    from tdal_torch.models.builder import build_assigner, build_detector, build_voxel_config
+    from tdal_torch.runtime.config import Config
+    from tdal_torch.runtime.schedules import adam_with_schedule, one_cycle
+    from tdal_torch.runtime.train_state import TrainState, param_count
+
+    cfg = Config.fromfile(VN_CONFIG)
+    voxel_cfg = build_voxel_config(cfg.voxel_generator, train=True)
+    model = build_detector(cfg.model, voxel_cfg, seed=0)
+    pre = cfg.train_preprocessor
+    total_steps = VN_DATA["n_frames"] // VN_BATCH * cfg.total_epochs
+    lr, mom = one_cycle(cfg.lr_config["lr_max"], total_steps, tuple(cfg.lr_config["moms"]),
+                        cfg.lr_config["div_factor"], cfg.lr_config["pct_start"])
+    opt = adam_with_schedule(model.parameters(), lr, cfg.optimizer["wd"],
+                             cfg.grad_clip["max_norm"], mom)
+    log(f"  {VN_CONFIG}: {param_count(model)} parameters, grid "
+        f"{tuple(int(g) for g in voxel_cfg.grid_size)} (x, y, z), {voxel_cfg.max_voxels} "
+        f"voxels, BEV {model.backbone.out_channels} channels into the RPN, "
+        f"{model.rpn.out_channels} out; batch {VN_BATCH}, f32")
+    t0 = time.perf_counter()
+    infos, _ = make_synthetic_dataset(root / "data", **VN_DATA)
+    ds = DetectionDataset(
+        infos, cfg.class_names, build_assigner(cfg.assigner, model), voxel_cfg, mode="train",
+        max_points=cfg.data["train"]["max_points"],
+        global_rot_noise=tuple(pre["global_rot_noise"]),
+        global_scale_noise=tuple(pre["global_scale_noise"]),
+        shuffle_points=pre["shuffle_points"], seed=0)
+    log(f"  {len(ds)} synthetic frames written in {time.perf_counter() - t0:.1f} s")
+    return cfg, model, TrainState(model, opt), ds, total_steps
+
+
+def phase_voxelnet_train(device, root: Path) -> tuple:
+    """(a): VoxelNet training at the Waymo config's width, batch 4, through
+    ``train_detector``; the step alone, a profiled step, and one step against a CPU
+    copy with two controls."""
+    from tdal_torch.data.detection import collate_detection
+    from tdal_torch.ops import conv3x3 as cv
+    from tdal_torch.pipeline.detector_engine import make_detector_steps
+    from tdal_torch.pipeline.detector_run import train_detector
+
+    logger = logging.getLogger("chip_smoke")
+    cfg, model, state, ds, total_steps = voxelnet_training(root)
+    head = cfg.model["bbox_head"]
+    batch = collate_detection([ds[i] for i in range(VN_BATCH)])
+    n_points = [int(np.isfinite(p[:, 0]).sum()) for p in batch["points"]]
+    model.eval()
+    with torch.no_grad():
+        model(torch.as_tensor(batch["points"], device=device))
+    log(f"  points per frame {n_points}; occupied voxels by backbone level, against caps:")
+    occupancy = occupancy_report(model)
+    if min(occupancy[0]["voxels"]) < VN_MIN_VOXELS or min(n_points) < VN_MIN_POINTS:
+        raise AssertionError(f"a frame has fewer than {VN_MIN_POINTS} points or {VN_MIN_VOXELS} "
+                             f"voxels: {n_points}, {occupancy[0]}")
+
+    def run(tag, epochs):
+        work = root / tag
+        t0 = time.perf_counter()
+        train_detector(state, ds, head["code_weights"], n_epoch=epochs, batch_size=VN_BATCH,
+                       logger=logger, work_dir=work, weight=head["weight"], log_every=1)
+        torch.cuda.synchronize()
+        rows = [json.loads(line) for line in
+                (work / "logs" / "metrics.jsonl").read_text().splitlines()]
+        return time.perf_counter() - t0, rows
+
+    warm_s, warm_rows = run("warm", VN_WARM_EPOCHS)
+    torch.cuda.reset_peak_memory_stats()
+    for k in cv.launches:
+        cv.launches[k] = 0
+    timed_s, rows = run("timed", VN_TIMED_EPOCHS)
+    launches = dict(cv.launches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = [r["loss"] for r in warm_rows + rows]
+    log(f"  losses {losses}")
+    if not all(math.isfinite(v) for v in losses) or len(rows) != VN_TIMED:
+        raise AssertionError(f"non-finite or missing losses: {losses}")
+    log(f"  conv kernel launches per step: { {k: v / VN_TIMED for k, v in launches.items()} } "
+        f"(expected {VN_LAUNCHES}: {VN_SITES} stride-1 3x3 sites, {VN_CHAINED} chained)")
+    for name, n in launches.items():
+        if n != VN_TIMED * VN_LAUNCHES[name]:
+            raise AssertionError(f"{name}: {n} launches in {VN_TIMED} steps, expected "
+                                 f"{VN_LAUNCHES[name]} per step")
+    step = make_detector_steps(model, head["code_weights"], head["weight"])
+    step_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    step_ms = 1e3 * statistics.median(step_s)
+    profiled = device_time_by_category(step, state, batch)
+    # the sparse backbone alone, forward and backward of its BEV (train mode; its
+    # running statistics restored after)
+    from tdal_torch.core.voxel import voxelize_batch
+
+    backbone, saved = model.backbone, copy.deepcopy(model.backbone.state_dict())
+    with torch.no_grad():
+        pts = torch.as_tensor(batch["points"], device=device)
+        vox, coords, num, n_vox = voxelize_batch(pts, model.voxel_cfg)
+        feats = model.reader(vox, num)
+        valid = torch.arange(feats.shape[1], device=device)[None, :] < n_vox[:, None]
+    backbone_s = []
+    backbone.train()
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bev = backbone(feats * valid[..., None], coords, valid)
+        bev.backward(torch.ones_like(bev))
+        torch.cuda.synchronize()
+        backbone_s.append(time.perf_counter() - t0)
+    model.zero_grad(set_to_none=True)
+    backbone.load_state_dict(saved)
+    backbone_ms = 1e3 * statistics.median(backbone_s[1:])
+    frames_per_s = VN_TIMED * VN_BATCH / timed_s
+    log(f"  train_detector: {VN_TIMED} steps in {timed_s:.3f} s (host data, logging and a "
+        f"checkpoint an epoch included), {frames_per_s:.2f} training frames/s; step alone "
+        f"{step_ms:.1f} ms (median of 3: {', '.join(f'{1e3 * v:.1f}' for v in step_s)}); "
+        f"the sparse backbone alone, forward + backward, {backbone_ms:.1f} ms "
+        f"({100 * backbone_ms / step_ms:.0f}% of the step, synchronised apart); peak memory "
+        f"{peak_gib:.2f} GiB; warm-up {warm_s:.1f} s")
+
+    check = check_step_with_controls(
+        model, first_frames(batch, VN_CHECK_BATCH), device, cfg, total_steps,
+        {"subm backward drops a tap": (model, subm_backward_drops_a_tap, "grad_err_over_tol"),
+         # n / (n - 1) moves a running variance (momentum 0.01) by a few f32 steps only
+         # where n is small: the deepest sparse levels (about 3e4 valid rows) show it
+         # against the statistics' own noise floor
+         "unbiased running variance": (model, unbiased_running_variance,
+                                       "stat_err_over_tol")},
+        stat_noise=True)
+    out = dict(launches=launches, launches_per_step=VN_LAUNCHES, losses=losses,
+               step_ms=step_ms, step_s=step_s, timed_s=timed_s, frames_per_s=frames_per_s,
+               backbone_ms=backbone_ms, peak_gib=peak_gib, occupancy=occupancy,
+               points_per_frame=n_points, profiled_step=profiled,
+               check_batch=VN_CHECK_BATCH, **check)
+    return out, cfg, model, ds
+
+
+def phase_voxelnet_infer(device, cfg, trained, root: Path) -> dict:
+    """(b): ``run_inference`` at the config's test settings (400000 voxels, NMS pre 4096
+    / post 500 at IoU 0.7, score 0.1) with (a)'s weights; one batch against a CPU copy."""
+    from tdal_torch.data.detection import DetectionDataset
+    from tdal_torch.data.synthetic import make_synthetic_dataset
+    from tdal_torch.models.builder import (
+        build_assigner, build_detector, build_test_cfg, build_voxel_config,
+    )
+    from tdal_torch.models.center_head import predict
+    from tdal_torch.pipeline.detector_run import run_inference
+    from tdal_torch.runtime.train_state import TrainState
+
+    logger = logging.getLogger("chip_smoke")
+    timing = _Records("Total time per frame")
+    logger.addHandler(timing)
+    voxel_cfg = build_voxel_config(cfg.voxel_generator, train=False)
+    model = build_detector(cfg.model, voxel_cfg, device=device, seed=0)
+    model.load_state_dict(trained.state_dict())
+    test_cfg = build_test_cfg(cfg.test_cfg, model, voxel_cfg)
+    try:
+        infos, _ = make_synthetic_dataset(root / "test", **VN_TEST_DATA)
+        ds = DetectionDataset(infos, cfg.class_names, build_assigner(cfg.assigner, model),
+                              voxel_cfg, mode="test", max_points=cfg.data["val"]["max_points"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        dets = run_inference(TrainState(model, None), ds, test_cfg, INFER_BATCH, logger,
+                             speed_test=True)
+        total = time.perf_counter() - t0
+        s_per_frame = timing.records.pop().args[0]
+    finally:
+        logger.removeHandler(timing)
+    kept = [len(d["scores"]) for d in dets.values()]
+    if len(dets) != len(ds) or not all(np.isfinite(d["box3d_lidar"]).all()
+                                       and d["box3d_lidar"].shape[1] == 7
+                                       for d in dets.values()):
+        raise AssertionError("detections missing, not finite or not 7 wide")
+    out = dict(frames_per_s=1.0 / s_per_frame, s_per_frame=s_per_frame, total_s=total,
+               kept_per_frame=float(np.mean(kept)),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    points = torch.as_tensor(np.stack([ds[i]["points"] for i in range(INFER_BATCH)]),
+                             device=device)
+    fwd, post = [], []
+    with torch.no_grad():
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            maps = model(points)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            predict(maps, test_cfg, model.num_classes)
+            torch.cuda.synchronize()
+            fwd.append(t1 - t0)
+            post.append(time.perf_counter() - t1)
+    out["forward_ms_per_batch"] = 1e3 * statistics.median(fwd[1:])
+    out["nms_ms_per_frame"] = 1e3 * statistics.median(post[1:]) / INFER_BATCH
+    log(f"  run_inference: {out['frames_per_s']:.3f} frames/s (middle third, synchronised; "
+        f"{s_per_frame:.6f} s per frame), {len(ds)} frames in {total:.2f} s with the host "
+        f"data; kept boxes per frame {out['kept_per_frame']:.1f}; peak memory "
+        f"{out['peak_gib']:.2f} GiB; one batch of {INFER_BATCH}: forward "
+        f"{out['forward_ms_per_batch']:.1f} ms, decode + NMS {out['nms_ms_per_frame']:.1f} ms "
+        f"per frame (medians of 3)")
+    log(f"  test voxels by backbone level (the last batch), against caps:")
+    out["occupancy"] = occupancy_report(model)
+    out["cpu_check"] = check_infer_against_cpu(model, points[:VN_CHECK_BATCH], test_cfg)
+    return out
+
+
+# the RoI head step, card against CPU: the loss and the gradients (f32 matmuls over
+# 2560 inputs and BatchNorms over 512 rows, summed in another order) 1e-4 of the leaf's
+# largest; the running statistics 1e-5 (f32 sums over 512 rows: about 1e-7 on an
+# H100), which the unbiased variance (512 / 511, momentum 0.1: 1e-4 to 4e-4) fails
+ROI_TOL = {"loss_rel_err": 1e-4, "grad_rel_err": 1e-4, "stat_rel_err": 1e-5}
+
+
+def roi_step(engine, rois, labels, scores, feats, gt, draws, device):
+    """One RoI head step on ``device`` from the first stage's outputs: (loss, the RoI
+    head's gradients, its state after the update) in float64 on the CPU."""
+    from tdal_torch.models.two_stage import proposal_targets, roi_losses
+    from tdal_torch.runtime.schedules import adam_with_schedule
+
+    head = copy.deepcopy(engine.roi_head).to(device).train()
+    opt = adam_with_schedule(head.parameters(), lambda n: 1e-3, 0.01, 35.0)
+    mv = lambda t: t.to(device)  # noqa: E731
+    targets = proposal_targets(mv(draws["proposal"]), mv(rois), mv(scores), mv(labels),
+                               mv(feats), mv(gt), engine.roi_cfg)
+    cls, reg = head(targets["roi_features"], dropout=[mv(m) for m in draws["dropout"]])
+    cls_loss, reg_loss = roi_losses(cls, reg, targets, engine.code_weights_roi)
+    total = cls_loss + reg_loss
+    total.backward()
+    grads = {k: p.grad.detach().cpu().double() for k, p in head.named_parameters()}
+    opt.step()
+    return (float(total.detach()), grads,
+            {k: v.detach().cpu().double() for k, v in head.state_dict().items()})
+
+
+def phase_two_stage(device, trained, ds_train, root: Path) -> dict:
+    """(c): the freeze config at full width, its first stage bf16 from (a)'s weights:
+    RoI head training, the first stage unchanged, predict, and one RoI head step
+    against a CPU copy fed the same RoIs, features, draws and dropout masks."""
+    from tdal_torch.data.detection import collate_detection
+    from tdal_torch.models.builder import (
+        build_detector, build_test_cfg, build_two_stage_engine, build_voxel_config,
+    )
+    from tdal_torch.pipeline.two_stage_engine import make_two_stage_steps
+    from tdal_torch.pipeline.two_stage_run import train_two_stage
+    from tdal_torch.runtime.config import Config
+    from tdal_torch.runtime.schedules import adam_with_schedule, one_cycle
+    from tdal_torch.runtime.train_state import TrainState, param_count
+
+    logger = logging.getLogger("chip_smoke")
+    cfg = Config.fromfile(VN_TWO_STAGE)
+    voxel_cfg = build_voxel_config(cfg.voxel_generator, train=True)
+    first = build_detector(cfg.model["first_stage_cfg"], voxel_cfg, device="cpu")
+    test_cfg = build_test_cfg(cfg.test_cfg, first, voxel_cfg)
+    del first
+    engine = build_two_stage_engine(cfg.model, voxel_cfg, test_cfg, seed=0)
+    engine.first.load_state_dict(trained.state_dict())
+    total_steps = 4
+    lr, mom = one_cycle(cfg.lr_config["lr_max"], total_steps)
+    opt = adam_with_schedule(engine.trainable_parameters(), lr, cfg.optimizer["wd"],
+                             cfg.grad_clip["max_norm"], mom)
+    state = TrainState(engine, opt)
+    n_head = param_count(engine.roi_head)
+    log(f"  {VN_TWO_STAGE}: first stage {engine.first.rpn.dtype}, RoIHead input "
+        f"{engine.roi_head.shared[0].linear.in_features}, {engine.roi_cfg.roi_per_image} "
+        f"RoIs an image, {n_head} RoI head parameters (the optimizer's), "
+        f"{param_count(engine) - n_head} frozen")
+    first_before = {k: v.clone() for k, v in engine.first.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    train_two_stage(state, ds_train, 1, VN_BATCH, logger, root / "two_stage", log_every=1)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    batch = collate_detection([ds_train[i] for i in range(VN_BATCH)])
+    train_step, predict_step = make_two_stage_steps(engine)
+    gen = torch.Generator().manual_seed(0)
+    step_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        logs = train_step(state, batch, generator=gen)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    changed = [k for k, v in engine.first.state_dict().items()
+               if not torch.equal(v, first_before[k])]
+    if changed or not math.isfinite(float(logs["loss"])):
+        raise AssertionError(f"the frozen first stage changed ({changed[:5]}) or the loss "
+                             f"is not finite ({float(logs['loss'])})")
+    points = torch.as_tensor(batch["points"], device=device)
+    pred_s = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        preds = predict_step(state, points)
+        torch.cuda.synchronize()
+        pred_s.append(time.perf_counter() - t0)
+    if not (torch.isfinite(preds["box3d_lidar"]).all() and preds["valid"].any()):
+        raise AssertionError("two-stage predictions not finite or empty")
+    out = dict(train_s=train_s, step_ms=1e3 * statistics.median(step_s), peak_gib=peak_gib,
+               loss=float(logs["loss"]), first_stage_unchanged=True,
+               predict_frames_per_s=VN_BATCH / statistics.median(pred_s[1:]),
+               kept=int(preds["valid"].sum()))
+    log(f"  train_two_stage: {len(ds_train) // VN_BATCH} steps in {train_s:.2f} s; RoI head "
+        f"step alone {out['step_ms']:.1f} ms (median of 3), loss {out['loss']:.4f}; peak "
+        f"memory {peak_gib:.2f} GiB; the first stage's parameters and running statistics "
+        f"unchanged; predict {out['predict_frames_per_s']:.2f} frames/s ({out['kept']} "
+        f"boxes valid in the batch)")
+
+    # one RoI head step, card against a CPU copy, on the same first-stage outputs
+    with torch.no_grad():
+        _, rois, labels, scores, feats, _ = engine.first_stage_rois(points, train=False)
+    # tdal's slice of the GT rows for a 7-wide code (two_stage_engine._gt_of)
+    gt = torch.as_tensor(batch["gt_boxes_and_cls"], device=device)[..., :8]
+    draws = engine.draws(rois.shape[0], rois.shape[1], torch.Generator().manual_seed(1))
+    first_out = [t.float().cpu() for t in (rois, labels, scores, feats, gt)]
+    first_out[1] = labels.cpu()
+    card = roi_step(engine, *first_out, draws, device)
+    cpu = roi_step(engine, *first_out, draws, torch.device("cpu"))
+    with unbiased_running_variance():
+        control = roi_step(engine, *first_out, draws, device)
+
+    def errors(a):
+        g = max(float((a[1][k] - cpu[1][k]).abs().max()) / max(1e-12, float(cpu[1][k].abs().max()))
+                for k in cpu[1])
+        st = max(float((a[2][k] - cpu[2][k]).abs().max() / cpu[2][k].abs().max().clamp_min(1e-6))
+                 for k in cpu[2] if "running" in k)
+        return dict(loss_rel_err=abs(a[0] - cpu[0]) / abs(cpu[0]), grad_rel_err=g,
+                    stat_rel_err=st)
+
+    out["roi_check"], out["roi_control_unbiased"] = errors(card), errors(control)
+    log(f"  one RoI head step on the card against a CPU copy (same RoIs, features, draws "
+        f"and dropout masks): {out['roi_check']} (tol: {ROI_TOL}); control with the "
+        f"unbiased running variance: {out['roi_control_unbiased']}")
+    if not all(out["roi_check"][k] <= tol for k, tol in ROI_TOL.items()):
+        raise AssertionError(f"the RoI head step differs from the CPU's: {out['roi_check']}")
+    if not out["roi_control_unbiased"]["stat_rel_err"] > ROI_TOL["stat_rel_err"]:
+        raise AssertionError("the unbiased-variance control passes the RoI head check")
+    return out
+
+
+def phase_voxelnet(device) -> dict:
+    """Phase 9: (a) training, (b) inference, (c) the two-stage detector."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        log("  (a) VoxelNet training")
+        train, cfg, model, ds = phase_voxelnet_train(device, root)
+        t_a = time.perf_counter() - t0
+        log("  (b) VoxelNet inference")
+        infer = phase_voxelnet_infer(device, cfg, model, root)
+        t_b = time.perf_counter() - t0 - t_a
+        log("  (c) the two-stage detector, first stage frozen")
+        two = phase_two_stage(device, model, ds, root)
+        t_c = time.perf_counter() - t0 - t_a - t_b
+    log(f"  phase 9 seconds: training {t_a:.1f}, inference {t_b:.1f}, two-stage {t_c:.1f}")
+    return dict(train=train, infer=infer, two_stage=two, seconds=[t_a, t_b, t_c])
+
+
 # a rounding-level relative change of every weight: the probe's stand-in for the
 # card-vs-CPU rounding difference, which costs a minute and a half of CPU to measure
 PROBE_ROUNDING = 2.0**-22
@@ -1969,6 +2560,8 @@ def main() -> int:
                              "training states (see noise_probe)")
     parser.add_argument("--offboard-only", action="store_true",
                         help="build, then run only phase 8 from a fresh detector")
+    parser.add_argument("--voxelnet-only", action="store_true",
+                        help="build, then run only phase 9")
     parser.add_argument("--library-times", action="store_true",
                         help="only time phase 5's cuDNN calls in benchmark mode and print "
                              "them as one JSON line (phase 5 runs this in a child process)")
@@ -2044,6 +2637,10 @@ def main() -> int:
         log("phase 8 the offboard chain (alone, from a fresh detector)")
         print(json.dumps(phase_offboard(device, cfg, fresh), default=str))
         return 0
+    if args.voxelnet_only:
+        log("phase 9 VoxelNet and the two-stage detector (alone)")
+        print(json.dumps(phase_voxelnet(device), default=str))
+        return 0
 
     lap(2)
 
@@ -2074,6 +2671,12 @@ def main() -> int:
     log("phase 8 the offboard chain: labeler training, then the detector-fed chain")
     offboard = phase_offboard(device, pp_cfg, pp_model)
     lap(8)
+    del pp_model
+    torch.cuda.empty_cache()
+
+    log("phase 9 sparse VoxelNet training and inference, and the two-stage detector")
+    voxelnet = phase_voxelnet(device)
+    lap(9)
 
     entries = []
     for name, by_case in kres.items():
@@ -2107,9 +2710,11 @@ def main() -> int:
         entries.append(dict(
             name=name, route="cuda", source=CONV_SOURCE,
             replaces=PROTO["replaces"] if proto else CONV_REPLACES[name],
-            launches=offboard["conv_launches"][key],
+            launches=offboard["conv_launches"][key] + voxelnet["train"]["launches"][key],
             launches_by_path={"phase 6 timed steps": train["launches"][key],
-                              "phase 8 detector rounds": offboard["conv_launches"][key]},
+                              "phase 8 detector rounds": offboard["conv_launches"][key],
+                              "phase 9 VoxelNet timed steps":
+                                  voxelnet["train"]["launches"][key]},
             max_abs_err=main_case["max_abs_err"], ms=main_case["ms"],
             plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
             bound_by=main_case["bound_by"], library_ms=main_case["library_ms"],
@@ -2129,6 +2734,7 @@ def main() -> int:
     log(f"  training summary: {json.dumps(train_summary)}")
     log(f"  inference summary: {json.dumps(infer)}")
     log(f"  offboard summary: {json.dumps(offboard, default=str)}")
+    log(f"  VoxelNet summary: {json.dumps(voxelnet, default=str)}")
     log(f"  seconds by phase (phase 2 from the start): {json.dumps(seconds)}")
     log(f"card: {kind} | {smi}")
     print(json.dumps({"kernels": entries}))

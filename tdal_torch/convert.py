@@ -9,10 +9,14 @@ own walk (``pointpillars_state_dict``): conv ``kernel`` HWIO becomes OIHW, the f
 ``ConvTranspose`` kernel (which flax applies spatially flipped) becomes the
 ``ConvTranspose2d`` weight (Ci, Co, s, s), and ``FusedConvBN``'s ``kernel,
 conv_bias, scale, bias`` + ``mean, var`` keep their names on the port's module.
+VoxelNet (``voxelnet_state_dict``) shares the RPN and head walk; its sparse backbone's
+(K, Cin, Cout) weights map one to one, its dense backbone's 3D conv kernels (kd, kh, kw,
+Ci, Co) become (Co, Ci, kd, kh, kw). ``two_stage_state_dict`` adds the RoI head.
 """
 
 from __future__ import annotations
 
+import itertools
 import re
 
 import numpy as np
@@ -113,21 +117,13 @@ def _fused(out, prefix, p, stats):
     out[prefix + "running_var"] = _t(stats["var"])
 
 
-def pointpillars_state_dict(model: nn.Module, params: dict, batch_stats: dict) -> dict:
-    """``state_dict`` of a ``tdal_torch.models.detectors.PointPillars`` from the flax
-    trees of ``tdal.models.detectors.PointPillars``."""
-    out: dict = {}
-    p, bs = params["PillarFeatureNet_0"], batch_stats["PillarFeatureNet_0"]
-    for i in range(len(model.reader.pfn_layers)):
-        name, pre = f"PFNLayer_{i}", f"reader.pfn_layers.{i}."
-        out[pre + "linear.weight"] = _t(p[name]["Dense_0"]["kernel"]).t().contiguous()
-        _bn(out, pre + "norm.", p[name]["MaskedBatchNorm_0"], bs[name]["MaskedBatchNorm_0"])
-
+def _rpn_and_head(out: dict, model: nn.Module, params: dict, batch_stats: dict,
+                  prefix: str = ""):
     p, bs = params["RPN_0"], batch_stats["RPN_0"]
     k = 0
     for i, block in enumerate(model.rpn.blocks):
         for j, layer in enumerate(block):
-            name, pre = f"ConvBNReLU_{k}", f"rpn.blocks.{i}.{j}."
+            name, pre = f"ConvBNReLU_{k}", f"{prefix}rpn.blocks.{i}.{j}."
             k += 1
             if layer.fused is not None:
                 _fused(out, pre + "fused.", p[name]["FusedConvBN_0"],
@@ -136,19 +132,32 @@ def pointpillars_state_dict(model: nn.Module, params: dict, batch_stats: dict) -
                 out[pre + "conv.weight"] = _conv(p[name]["Conv_0"]["kernel"])
                 _bn(out, pre + "bn.", p[name]["BatchNorm_0"], bs[name]["BatchNorm_0"])
     for j in range(len(model.rpn.deblocks)):
-        name, pre = f"DeconvBNReLU_{j}", f"rpn.deblocks.{j}."
+        name, pre = f"DeconvBNReLU_{j}", f"{prefix}rpn.deblocks.{j}."
         d = p[name]
         out[pre + "conv.weight"] = (_deconv(d["ConvTranspose_0"]["kernel"])
                                     if "ConvTranspose_0" in d else _conv(d["Conv_0"]["kernel"]))
         _bn(out, pre + "bn.", d["BatchNorm_0"], bs[name]["BatchNorm_0"])
 
     p, bs = params["CenterHead_0"], batch_stats["CenterHead_0"]
-    _fused(out, "head.shared.", p["FusedConvBN_0"], bs["FusedConvBN_0"])
+    _fused(out, f"{prefix}head.shared.", p["FusedConvBN_0"], bs["FusedConvBN_0"])
     for t in range(len(model.head.tasks)):
-        sp, sbs, pre = p[f"SepHead_{t}"], bs[f"SepHead_{t}"], f"head.tasks.{t}."
+        sp, sbs, pre = p[f"SepHead_{t}"], bs[f"SepHead_{t}"], f"{prefix}head.tasks.{t}."
         _fused(out, pre + "branch_convbn0.", sp["branch_convbn0"], sbs["branch_convbn0"])
         out[pre + "final_conv_weight"] = _conv(sp["final_conv_kernel"])
         out[pre + "final_conv_bias"] = _t(sp["final_conv_bias"])
+
+
+def pointpillars_state_dict(model: nn.Module, params: dict, batch_stats: dict,
+                            prefix: str = "") -> dict:
+    """``state_dict`` of a ``tdal_torch.models.detectors.PointPillars`` from the flax
+    trees of ``tdal.models.detectors.PointPillars`` (keys under ``prefix``)."""
+    out: dict = {}
+    p, bs = params["PillarFeatureNet_0"], batch_stats["PillarFeatureNet_0"]
+    for i in range(len(model.reader.pfn_layers)):
+        name, pre = f"PFNLayer_{i}", f"{prefix}reader.pfn_layers.{i}."
+        out[pre + "linear.weight"] = _t(p[name]["Dense_0"]["kernel"]).t().contiguous()
+        _bn(out, pre + "norm.", p[name]["MaskedBatchNorm_0"], bs[name]["MaskedBatchNorm_0"])
+    _rpn_and_head(out, model, params, batch_stats, prefix)
     return out
 
 
@@ -156,3 +165,108 @@ def load_flax_pointpillars(model: nn.Module, params: dict, batch_stats: dict) ->
     """Load tdal's PointPillars trees into ``model`` (strict)."""
     model.load_state_dict(pointpillars_state_dict(model, params, batch_stats))
     return model
+
+
+# ---------------------------------------------------------------------------
+# VoxelNet and the two-stage detector
+# ---------------------------------------------------------------------------
+
+
+def _conv3d(kernel) -> torch.Tensor:
+    """flax 3D conv kernel (kd, kh, kw, Ci, Co) -> torch (Co, Ci, kd, kh, kw)."""
+    return _t(kernel).permute(4, 3, 0, 1, 2).contiguous()
+
+
+def sparse_backbone_state_dict(params: dict, batch_stats: dict, prefix: str = "") -> dict:
+    """``state_dict`` of a ``SparseMiddleBackbone`` from tdal's: the (K, Cin, Cout)
+    weights keep their names, ``MaskedBatchNorm_k`` becomes ``norms.k``."""
+    out: dict = {}
+    for name, w in params.items():
+        if name.startswith("MaskedBatchNorm_"):
+            _bn(out, f"{prefix}norms.{name.split('_')[-1]}.", w, batch_stats[name])
+        else:
+            out[prefix + name] = _t(w)
+    return out
+
+
+def dense_backbone_state_dict(backbone: nn.Module, params: dict, batch_stats: dict,
+                              prefix: str = "") -> dict:
+    """``state_dict`` of a dense ``MiddleBackbone`` from tdal's: its
+    ``Conv3DBNReLU_i`` / ``BasicBlock3D_j`` in forward order are ``layers``."""
+    out: dict = {}
+
+    def conv_bn(key, cp, cbs):
+        out[key + "conv.weight"] = _conv3d(cp["Conv_0"]["kernel"])
+        _bn(out, key + "bn.", cp["BatchNorm_0"], cbs["BatchNorm_0"])
+
+    counts = {"Conv3DBNReLU": 0, "BasicBlock3D": 0}
+    for i, layer in enumerate(backbone.layers):
+        kind = type(layer).__name__
+        name = f"{kind}_{counts[kind]}"
+        counts[kind] += 1
+        key = f"{prefix}layers.{i}."
+        if kind == "BasicBlock3D":
+            conv_bn(key + "conv_bn_relu.", params[name]["Conv3DBNReLU_0"],
+                    batch_stats[name]["Conv3DBNReLU_0"])
+        conv_bn(key, params[name], batch_stats[name])
+    return out
+
+
+def voxelnet_state_dict(model: nn.Module, params: dict, batch_stats: dict,
+                        prefix: str = "") -> dict:
+    """``state_dict`` of a ``tdal_torch.models.detectors.VoxelNet`` from the flax trees
+    of ``tdal.models.detectors.VoxelNet`` (sparse or dense backbone; keys under
+    ``prefix``)."""
+    from tdal_torch.models.scn_sparse import SparseMiddleBackbone
+
+    pre = f"{prefix}backbone."
+    if isinstance(model.backbone, SparseMiddleBackbone):
+        name = "SparseMiddleBackbone_0"
+        out = sparse_backbone_state_dict(params[name], batch_stats[name], pre)
+    else:
+        name = "MiddleBackbone_0"
+        out = dense_backbone_state_dict(model.backbone, params[name], batch_stats[name], pre)
+    _rpn_and_head(out, model, params, batch_stats, prefix)
+    return out
+
+
+def load_flax_voxelnet(model: nn.Module, params: dict, batch_stats: dict) -> nn.Module:
+    """Load tdal's VoxelNet trees into ``model`` (strict)."""
+    model.load_state_dict(voxelnet_state_dict(model, params, batch_stats))
+    return model
+
+
+def roi_head_state_dict(head: nn.Module, params: dict, batch_stats: dict,
+                        prefix: str = "") -> dict:
+    """``state_dict`` of a ``tdal_torch.models.two_stage.RoIHead`` from tdal's RoIHead
+    trees: its ``Dense_i`` / ``BatchNorm_j`` in creation order are the shared layers,
+    the cls branch and its output Linear, then the reg branch and its output."""
+    out: dict = {}
+    dense, bn = itertools.count(), itertools.count()
+    for stack, final in (("shared", None), ("cls_layers", "cls_out"),
+                         ("reg_layers", "reg_out")):
+        for i in range(len(getattr(head, stack))):
+            key = f"{prefix}{stack}.{i}."
+            out[key + "linear.weight"] = _t(params[f"Dense_{next(dense)}"]["kernel"]).t().contiguous()
+            b = f"BatchNorm_{next(bn)}"
+            _bn(out, key + "bn.", params[b], batch_stats[b])
+        if final is not None:
+            d = params[f"Dense_{next(dense)}"]
+            out[f"{prefix}{final}.weight"] = _t(d["kernel"]).t().contiguous()
+            out[f"{prefix}{final}.bias"] = _t(d["bias"])
+    return out
+
+
+def load_flax_two_stage(engine: nn.Module, params: dict, batch_stats: dict) -> nn.Module:
+    """Load tdal's two-stage trees (``{"first": ..., "roi": ...}`` for params and for
+    batch_stats, as ``TwoStageEngine.init`` returns them) into a ``TwoStageEngine``
+    (strict)."""
+    from tdal_torch.models.detectors import VoxelNet
+
+    first = (voxelnet_state_dict if isinstance(engine.first, VoxelNet)
+             else pointpillars_state_dict)
+    sd = first(engine.first, params["first"], batch_stats["first"], prefix="first.")
+    sd.update(roi_head_state_dict(engine.roi_head, params["roi"], batch_stats["roi"],
+                                  prefix="roi_head."))
+    engine.load_state_dict(sd)
+    return engine

@@ -1,9 +1,16 @@
-"""CenterPoint with the PointPillars backbone.
+"""CenterPoint detectors: PointPillars and VoxelNet.
 
-Port of ``tdal/models/detectors.py:PointPillars``: raw padded points (B, N, D) ->
-voxelize on the device -> pillar feature net -> BEV scatter -> RPN -> CenterHead.
-Train or eval follows ``module.training``. BEV spatial sharding and the deformable
-head (``bev_sharding``, ``dcn_head``) are not ported yet.
+Port of ``tdal/models/detectors.py``. Both take raw padded points (B, N, D) and
+voxelize on the device.
+
+- ``PointPillars``: pillar feature net -> BEV scatter -> RPN -> CenterHead.
+- ``VoxelNet``: voxel mean -> 3D middle backbone -> RPN -> CenterHead. The backbone is
+  the sparse submanifold one (``scn_sparse``) where the grid has more than 2^24 cells
+  (the Waymo grid: 40 x 1504 x 1504), else the dense one (``scn``), as tdal picks.
+
+Train or eval follows ``module.training``; ``return_feature=True`` also returns the
+RPN's BEV feature map, which the two-stage detector samples. BEV spatial sharding and
+the deformable head (``bev_sharding``, ``dcn_head``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,8 +23,10 @@ from torch import nn
 
 from tdal_torch.core.voxel import VoxelConfig, voxelize_batch
 from tdal_torch.models.center_head import COMMON_HEADS, CenterHead
-from tdal_torch.models.readers import PillarFeatureNet, scatter_to_bev
+from tdal_torch.models.readers import PillarFeatureNet, VoxelMeanEncoder, scatter_to_bev
 from tdal_torch.models.rpn import RPN
+from tdal_torch.models.scn import MiddleBackbone
+from tdal_torch.models.scn_sparse import SparseMiddleBackbone
 
 
 class PointPillars(nn.Module):
@@ -53,10 +62,59 @@ class PointPillars(nn.Module):
     def num_classes(self):
         return [len(t["class_names"]) for t in self.tasks]
 
-    def forward(self, points):
+    def forward(self, points, return_feature: bool = False):
         voxels, coords, num_points, n_vox = voxelize_batch(points, self.voxel_cfg)
         feats = self.reader(voxels, num_points, coords)
         valid = torch.arange(feats.shape[1], device=feats.device)[None, :] < n_vox[:, None]
         nx, ny, _ = (int(g) for g in self.voxel_cfg.grid_size)
         canvas = scatter_to_bev(feats * valid[..., None], coords, valid, ny, nx)
-        return self.head(self.rpn(canvas))
+        x = self.rpn(canvas)
+        preds = self.head(x)
+        return (preds, x) if return_feature else preds
+
+
+class VoxelNet(nn.Module):
+    def __init__(self, voxel_cfg: VoxelConfig, tasks: Sequence[dict],
+                 num_input_features: int = 5, rpn_layer_nums: Sequence[int] = (5, 5),
+                 rpn_ds_strides: Sequence[int] = (1, 2),
+                 rpn_ds_filters: Sequence[int] = (128, 256),
+                 rpn_us_strides: Sequence[int] = (1, 2),
+                 rpn_us_filters: Sequence[int] = (256, 256),
+                 with_velocity: bool = False, sparse_middle: bool = None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.voxel_cfg = voxel_cfg
+        self.tasks = [dict(t) for t in tasks]
+        self.with_velocity = with_velocity
+        self.rpn_ds_strides, self.rpn_us_strides = tuple(rpn_ds_strides), tuple(rpn_us_strides)
+        self.reader = VoxelMeanEncoder()
+        nx, ny, nz = (int(g) for g in voxel_cfg.grid_size)
+        if sparse_middle is None:
+            sparse_middle = nz * ny * nx > 2**24
+        middle = SparseMiddleBackbone if sparse_middle else MiddleBackbone
+        self.backbone = middle((nz, ny, nx), num_input_features, dtype=dtype)
+        self.rpn = RPN(self.backbone.out_channels, rpn_layer_nums, rpn_ds_strides,
+                       rpn_ds_filters, rpn_us_strides, rpn_us_filters, dtype=dtype)
+        common = dict(COMMON_HEADS)
+        if with_velocity:
+            common["vel"] = (2, 2)
+        self.head = CenterHead(self.rpn.out_channels, self.tasks, common, dtype=dtype)
+
+    @property
+    def out_size_factor(self) -> int:
+        # the middle backbone downsamples the BEV by 8, the RPN by its net factor
+        f = 8 * int(np.prod(self.rpn_ds_strides))
+        return max(f // int(self.rpn_us_strides[-1]), 1)
+
+    @property
+    def num_classes(self):
+        return [len(t["class_names"]) for t in self.tasks]
+
+    def forward(self, points, return_feature: bool = False):
+        voxels, coords, num_points, n_vox = voxelize_batch(points, self.voxel_cfg)
+        feats = self.reader(voxels, num_points)
+        valid = torch.arange(feats.shape[1], device=feats.device)[None, :] < n_vox[:, None]
+        bev = self.backbone(feats * valid[..., None], coords, valid)
+        x = self.rpn(bev)
+        preds = self.head(x)
+        return (preds, x) if return_feature else preds

@@ -1,8 +1,9 @@
-"""Point-cloud reader of PointPillars: the pillar feature net and the BEV scatter.
+"""Point-cloud readers: PointPillars' pillar feature net and BEV scatter, VoxelNet's
+voxel mean.
 
 Port of ``tdal/models/readers.py`` (``PFNLayer``, ``PillarFeatureNet``,
-``scatter_to_bev``). Batch-major (B, V, P, C); padded points and pillars are masked
-out of the BatchNorm statistics and of the per-pillar max.
+``VoxelMeanEncoder``, ``scatter_to_bev``). Batch-major (B, V, P, C); padded points and
+pillars are masked out of the BatchNorm statistics, the per-pillar max and the mean.
 """
 
 from __future__ import annotations
@@ -74,6 +75,17 @@ class PillarFeatureNet(nn.Module):
         for layer in self.pfn_layers:
             x = layer(x, point_mask)
         return x
+
+
+class VoxelMeanEncoder(nn.Module):
+    """The mean of the points in each voxel (reference VoxelFeatureExtractorV3):
+    voxels (B, V, P, D), num_points (B, V) -> (B, V, D); no parameters."""
+
+    def forward(self, voxels, num_points):
+        p = voxels.shape[-2]
+        mask = (torch.arange(p, device=voxels.device) < num_points[..., None]).to(voxels.dtype)
+        s = (voxels * mask[..., None]).sum(dim=-2)
+        return s / num_points.clamp_min(1).to(voxels.dtype)[..., None]
 
 
 def scatter_to_bev(features, coords, valid, ny: int, nx: int):

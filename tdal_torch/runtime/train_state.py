@@ -49,5 +49,17 @@ class TrainState:
         return self
 
 
+def checkpoint_file(path) -> Path:
+    """``path`` itself, or the newest ``step_*.pt`` (``train_detector``'s checkpoints)
+    in the directory ``path``."""
+    path = Path(path)
+    if path.is_dir():
+        found = sorted(path.glob("step_*.pt"))
+        if not found:
+            raise FileNotFoundError(f"no step_*.pt checkpoint in {path}")
+        path = found[-1]
+    return path
+
+
 def param_count(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())

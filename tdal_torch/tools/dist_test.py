@@ -3,8 +3,10 @@
 The detector over a split, in order -> ``<work_dir>/prediction.pkl`` keyed by token;
 ``--speed_test`` logs the middle third's seconds per frame; ``--double_flip`` runs the
 four-variant flip TTA; ``--evaluate`` writes det_annos and the proto rows. The
-checkpoint is a ``.pt`` of ``train``'s (or the newest one in a directory). The
-two-stage branch, spatial sharding and the profiler hook are not ported yet.
+checkpoint is a ``.pt`` of ``train``'s (or the newest one in a directory). A
+``TwoStageDetector`` config runs ``run_two_stage_inference`` (sqrt-rescored RoI head
+predictions) with a two-stage checkpoint. Spatial sharding and the profiler hook are
+not ported yet.
 """
 
 import argparse
@@ -15,13 +17,14 @@ import torch
 from tdal_torch.data.detection import DetectionDataset
 from tdal_torch.data.waymo_schema import dump_pickle, load_pickle, reorganize_info
 from tdal_torch.models.builder import (
-    build_assigner, build_detector, build_test_cfg, build_voxel_config,
+    build_assigner, build_detector, build_test_cfg, build_two_stage_engine, build_voxel_config,
 )
 from tdal_torch.pipeline.detector_run import run_inference
+from tdal_torch.pipeline.two_stage_run import run_two_stage_inference
 from tdal_torch.pipeline.track_extraction import create_pd_detection
 from tdal_torch.runtime.config import Config
 from tdal_torch.runtime.logging_utils import create_logger, fix_seed
-from tdal_torch.runtime.train_state import TrainState
+from tdal_torch.runtime.train_state import TrainState, checkpoint_file
 from tdal_torch.tools._common import add_device, refuse
 
 
@@ -43,17 +46,6 @@ def parse_args():
     return parser.parse_args()
 
 
-def checkpoint_file(path) -> Path:
-    """``path`` itself, or the newest ``step_*.pt`` in the directory ``path``."""
-    path = Path(path)
-    if path.is_dir():
-        found = sorted(path.glob("step_*.pt"))
-        if not found:
-            raise FileNotFoundError(f"no step_*.pt checkpoint in {path}")
-        path = found[-1]
-    return path
-
-
 def main():
     args = parse_args()
     if args.profile_dir:
@@ -61,17 +53,23 @@ def main():
     if args.spatial_shards > 1:
         refuse("--spatial_shards")
     cfg = Config.fromfile(args.config)
-    if cfg.model["type"] == "TwoStageDetector":
-        refuse("the two-stage dist_test branch")
     work_dir = Path(args.work_dir)
     work_dir.mkdir(parents=True, exist_ok=True)
     logger = create_logger(work_dir / "test.log")
     fix_seed(0)
 
     voxel_cfg = build_voxel_config(cfg.voxel_generator, train=False)
-    model = build_detector(cfg.model, voxel_cfg, device=args.device)
-    test_cfg = build_test_cfg(cfg.test_cfg, model, voxel_cfg)
-    assigner = build_assigner(cfg.train_cfg["assigner"], model)
+    two_stage = cfg.model["type"] == "TwoStageDetector"
+    if two_stage:
+        first = build_detector(cfg.model["first_stage_cfg"], voxel_cfg, device="cpu")
+        model = build_two_stage_engine(cfg.model, voxel_cfg,
+                                       build_test_cfg(cfg.test_cfg, first, voxel_cfg),
+                                       device=args.device)
+        detector = model.first
+    else:
+        model = detector = build_detector(cfg.model, voxel_cfg, device=args.device)
+    test_cfg = build_test_cfg(cfg.test_cfg, detector, voxel_cfg)
+    assigner = build_assigner(cfg.train_cfg["assigner"], detector)
     split_key = "train" if args.split in ("train", "mytrain") else "val"
     data = cfg.data[split_key]
     infos = load_pickle(args.info_path or data["info_path"])
@@ -86,8 +84,12 @@ def main():
                                      weights_only=True)["model"])
     logger.info(f"restored checkpoint: {ckpt}")
     batch_size = args.batch_size or cfg.data.get("samples_per_gpu", 4)
-    detections = run_inference(state, ds, test_cfg, batch_size, logger,
-                               speed_test=args.speed_test, double_flip=args.double_flip)
+    if two_stage:
+        detections = run_two_stage_inference(state, ds, batch_size, logger,
+                                              speed_test=args.speed_test)
+    else:
+        detections = run_inference(state, ds, test_cfg, batch_size, logger,
+                                   speed_test=args.speed_test, double_flip=args.double_flip)
     dump_pickle(detections, work_dir / "prediction.pkl")
     logger.info(f"saved prediction.pkl ({len(detections)} frames)")
     if args.evaluate:

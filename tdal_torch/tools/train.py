@@ -1,10 +1,12 @@
 """Detector training: port of ``tools/train.py``.
 
-Config-driven CenterPoint-PointPillars training on one device: the model, voxel
-generator, assigner and OneCycle'd AdamW from the config, ``train_detector`` with a
-checkpoint per epoch under ``<work_dir>/checkpoints`` and, with val infos, AP/APH
-every ``--val_every`` epochs. The data-parallel mesh, the two-stage detectors, the
-GT-aug sampler and the profiler hook are not ported yet.
+Config-driven CenterPoint training on one device: the model (PointPillars or
+VoxelNet), voxel generator, assigner and OneCycle'd AdamW from the config,
+``train_detector`` with a checkpoint per epoch under ``<work_dir>/checkpoints`` and,
+with val infos, AP/APH every ``--val_every`` epochs. A ``TwoStageDetector`` config
+trains its RoI head with ``train_two_stage`` on the first stage named by
+``first_stage_cfg.pretrained`` (frozen where the config says ``freeze``). The
+data-parallel mesh, the GT-aug sampler and the profiler hook are not ported yet.
 """
 
 import argparse
@@ -13,9 +15,10 @@ from pathlib import Path
 from tdal_torch.data.detection import DetectionDataset
 from tdal_torch.data.waymo_schema import load_pickle
 from tdal_torch.models.builder import (
-    build_assigner, build_detector, build_test_cfg, build_voxel_config,
+    build_assigner, build_detector, build_test_cfg, build_two_stage_engine, build_voxel_config,
 )
 from tdal_torch.pipeline.detector_run import train_detector
+from tdal_torch.pipeline.two_stage_run import load_pretrained_first, train_two_stage
 from tdal_torch.runtime.config import Config
 from tdal_torch.runtime.logging_utils import create_logger, fix_seed
 from tdal_torch.runtime.schedules import adam_with_schedule, one_cycle
@@ -49,8 +52,6 @@ def main():
     if args.profile_dir:
         refuse("--profile_dir")
     cfg = Config.fromfile(args.config)
-    if cfg.model["type"] == "TwoStageDetector":
-        refuse("two-stage training")
     pre = cfg.get("train_preprocessor", {})
     if (pre.get("db_sampler") or {}).get("enable", False):
         refuse("the GT-aug database sampler")
@@ -60,9 +61,19 @@ def main():
     seed = fix_seed(args.seed if args.seed is not None else 0)
 
     voxel_cfg = build_voxel_config(cfg.voxel_generator, train=True)
-    model = build_detector(cfg.model, voxel_cfg, device=args.device, seed=seed)
-    test_cfg = build_test_cfg(cfg.test_cfg, model, voxel_cfg)
-    assigner = build_assigner(cfg.train_cfg["assigner"], model)
+    two_stage = cfg.model["type"] == "TwoStageDetector"
+    if two_stage:
+        base_model_cfg = cfg.model["first_stage_cfg"]
+        first = build_detector(base_model_cfg, voxel_cfg, device="cpu", seed=seed)
+        model = build_two_stage_engine(cfg.model, voxel_cfg,
+                                       build_test_cfg(cfg.test_cfg, first, voxel_cfg),
+                                       device=args.device, seed=seed)
+        detector = model.first
+    else:
+        base_model_cfg = cfg.model
+        model = detector = build_detector(cfg.model, voxel_cfg, device=args.device, seed=seed)
+    test_cfg = build_test_cfg(cfg.test_cfg, detector, voxel_cfg)
+    assigner = build_assigner(cfg.train_cfg["assigner"], detector)
     data_train = cfg.data["train"]
     infos = load_pickle(args.info_path or data_train["info_path"])
     train_ds = DetectionDataset(
@@ -75,7 +86,7 @@ def main():
 
     val_ds = None
     val_info_path = args.val_info_path or cfg.data.get("val", {}).get("info_path")
-    if val_info_path and not args.no_val:
+    if val_info_path and not args.no_val and not two_stage:
         val_ds = DetectionDataset(
             load_pickle(val_info_path), data_train["class_names"], assigner, voxel_cfg, mode="val",
             nsweeps=data_train.get("nsweeps", 1),
@@ -89,18 +100,24 @@ def main():
                         moms=tuple(cfg.lr_config.get("moms", (0.95, 0.85))),
                         div_factor=cfg.lr_config.get("div_factor", 10.0),
                         pct_start=cfg.lr_config.get("pct_start", 0.4))
-    opt = adam_with_schedule(model.parameters(), lr, cfg.optimizer.get("wd", 0.01),
+    params = model.trainable_parameters() if two_stage else model.parameters()
+    opt = adam_with_schedule(params, lr, cfg.optimizer.get("wd", 0.01),
                              cfg.get("grad_clip", {}).get("max_norm"), mom)
     logger.info(f"detector params: {param_count(model)}")
     state = TrainState(model, opt)
+    if two_stage:
+        load_pretrained_first(model, cfg, logger)
     if args.resume_from:
         state.load(args.resume_from)
         logger.info(f"resumed from {args.resume_from} at step {state.step}")
-    head = cfg.model["bbox_head"]
-    train_detector(state, train_ds, head.get("code_weights", [1.0] * 8), total_epochs,
-                   batch_size, logger, work_dir, weight=head.get("weight", 2.0),
-                   seed=seed, val_ds=val_ds, test_cfg=test_cfg, val_every=args.val_every,
-                   val_max_frames=args.val_max_frames)
+    if two_stage:
+        train_two_stage(state, train_ds, total_epochs, batch_size, logger, work_dir, seed=seed)
+    else:
+        head = base_model_cfg["bbox_head"]
+        train_detector(state, train_ds, head.get("code_weights", [1.0] * 8), total_epochs,
+                       batch_size, logger, work_dir, weight=head.get("weight", 2.0),
+                       seed=seed, val_ds=val_ds, test_cfg=test_cfg, val_every=args.val_every,
+                       val_max_frames=args.val_max_frames)
     logger.info("Done.")
 
 

@@ -48,7 +48,11 @@ def test_importing_the_port_loads_no_reference_module():
     n_built, modules = res.stdout.strip().splitlines()
     assert n_built == "0"  # importing builds nothing
     loaded = modules.split()
-    assert "tdal_torch.pipeline.labeler_run" in loaded
+    for name in ("tdal_torch.pipeline.labeler_run", "tdal_torch.ops.sparse_conv",
+                 "tdal_torch.models.scn_sparse", "tdal_torch.models.scn",
+                 "tdal_torch.models.two_stage", "tdal_torch.pipeline.two_stage_engine",
+                 "tdal_torch.pipeline.two_stage_run"):
+        assert name in loaded, name
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -95,4 +99,26 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_card, tmp_path):
     assert boxes.shape == (1, 7) and np.isfinite(boxes).all()
     with pytest.raises(RuntimeError, match="CUDA"):
         track_extraction.create_pd_detection({}, {}, tmp_path, tracking=True)
+
+
+@pytest.mark.parametrize("config", [
+    "configs/waymo/voxelnet/waymo_centerpoint_voxelnet_3x.py",
+    "configs/waymo/voxelnet/two_stage/"
+    "waymo_centerpoint_voxelnet_two_stage_bev_5point_ft_6epoch_freeze.py"])
+def test_voxelnet_and_two_stage_builders_refuse_the_cpu_unless_asked(no_card, config):
+    from tdal_torch.models.builder import (
+        build_detector, build_test_cfg, build_two_stage_engine, build_voxel_config,
+    )
+    from tdal_torch.runtime.config import Config
+
+    cfg = Config.fromfile(ROOT / config)
+    vox = build_voxel_config(cfg.voxel_generator)
+    if cfg.model["type"] == "TwoStageDetector":
+        first = build_detector(cfg.model["first_stage_cfg"], vox, device="cpu")
+        test_cfg = build_test_cfg(cfg.test_cfg, first, vox)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build_two_stage_engine(cfg.model, vox, test_cfg)
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build_detector(cfg.model, vox)
 

@@ -218,9 +218,13 @@ def _conv_inputs(cuda, b, h, w, c, co, dtype, seed=0):
 # (B, H, W, C, Co): ragged channel counts (5->7 and 33->130 take the element copies);
 # C = Co = 1; 384->64, many K slices at a small image; an image whose H and W are not
 # multiples of the 8x16 block tile, with the 16-byte copies
+# the VoxelNet RPN's stride-1 sites (188^2 128->128, 94^2 256->256) and its head's
+# shared conv (188^2 512->64), at batch 1
 @pytest.mark.parametrize("shape", [(2, 8, 9, 5, 7), (1, 37, 41, 20, 70), (2, 32, 48, 64, 64),
                                    (1, 17, 20, 33, 130), (2, 5, 7, 1, 1),
-                                   (1, 12, 20, 384, 64), (2, 11, 35, 64, 64)])
+                                   (1, 12, 20, 384, 64), (2, 11, 35, 64, 64),
+                                   (1, 188, 188, 128, 128), (1, 94, 94, 256, 256),
+                                   (1, 188, 188, 512, 64)])
 def test_conv_kernels_match_twins(cuda, shape, in_act, dtype):
     x, w, b, s, t, gy = _conv_inputs(cuda, *shape, dtype)
     tol_y, tol_acc = CONV_TOL[dtype]
@@ -397,3 +401,115 @@ def test_offboard_label_chain_on_card_runs_the_kernels(cuda, tmp_path):
     assert counts["static_boxes_labeled"] > 0 and counts["dynamic_boxes_labeled"] > 0, counts
     assert {k: fp.launches[k] - before[k] for k in before} == {
         k: counts["predict_batches"] for k in before}
+
+
+# ---------------------------------------------------------------------------
+# The sparse 3D convs (plain PyTorch: gathers and matmuls) on the card against the same
+# ops on the CPU: tables and sites exactly equal; outputs and gradients within 1e-5 of
+# max(1, |cpu|) (f32 sums in another order, TF32 off); a backward repeated on the card
+# equal bit for bit (no atomics).
+# ---------------------------------------------------------------------------
+
+
+def _sparse_case(grid=(5, 40, 48), v=3000, n=(2400, 1700), c=16, seed=0):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    coords = np.full((len(n), v, 3), -1, np.int64)
+    valid = np.zeros((len(n), v), bool)
+    for i, k in enumerate(n):
+        lin = rng.choice(int(np.prod(grid)), k, replace=False)
+        coords[i, :k] = np.stack([lin // (grid[1] * grid[2]), (lin // grid[2]) % grid[1],
+                                  lin % grid[2]], 1)
+        valid[i, :k] = True
+    feats = rng.normal(size=(len(n), v, c)).astype(np.float32) * valid[..., None]
+    return grid, torch.from_numpy(coords), torch.from_numpy(feats), torch.from_numpy(valid)
+
+
+def _sparse_chain(sc, grid, coords, feats, valid, weights, device):
+    """sort -> subm -> down2 -> downz -> BEV on ``device``: (integer results, BEV,
+    gradients of feats and the three weights)."""
+    c, f, v, k = sc.sort_voxels(*(t.to(device) for t in (coords, feats, valid)), grid)
+    f = f.clone().requires_grad_()
+    ws = [w.to(device).requires_grad_() for w in weights]
+    nb = sc.subm_neighbors(c, v, k, grid)
+    y = sc.subm_conv3d(c, f, v, k, grid, ws[0], neighbors=nb)
+    c2, y2, v2, k2 = sc.sparse_conv3d_down2(c, y, v, k, grid, ws[1], 1200)
+    g2 = sc.down2_grid(grid)
+    c3, y3, v3, k3 = sc.sparse_conv3d_downz(c2, y2, v2, k2, g2, ws[2], 1200)
+    bev = sc.scatter_dense_bev(c3, y3, v3, sc.downz_grid(g2))
+    (bev * torch.linspace(-1, 1, bev.shape[-1], device=device)).sum().backward()
+    ints = [t.cpu() for t in (c, v, k, *nb, c2, v2, k2, c3, v3, k3)]
+    return ints, bev.detach().cpu(), [f.grad.cpu()] + [w.grad.cpu() for w in ws]
+
+
+@pytest.mark.gpu
+def test_sparse_convs_on_card_match_the_cpu(cuda):
+    from tdal_torch.ops import sparse_conv as sc
+
+    grid, coords, feats, valid = _sparse_case()
+    g = torch.Generator().manual_seed(1)
+    weights = [torch.randn(27, 16, 16, generator=g) / 20, torch.randn(27, 16, 32, generator=g) / 20,
+               torch.randn(3, 32, 32, generator=g) / 10]
+    card = _sparse_chain(sc, grid, coords, feats, valid, weights, cuda)
+    again = _sparse_chain(sc, grid, coords, feats, valid, weights, cuda)
+    cpu = _sparse_chain(sc, grid, coords, feats, valid, weights, torch.device("cpu"))
+    for a, b in zip(card[0], cpu[0]):
+        assert torch.equal(a, b)
+    assert int(card[0][7].sum()) > 1000  # many level-1 sites
+    assert max_rel_err(card[1], cpu[1]) <= 1e-5
+    for a, b, c in zip(card[2], cpu[2], again[2]):
+        assert max_rel_err(a, b) <= 1e-5
+        assert torch.equal(a, c)  # the backward repeats bit for bit
+    assert torch.equal(card[1], again[1])
+
+
+@pytest.mark.gpu
+def test_voxelnet_train_step_on_card_runs_the_kernels(cuda):
+    """One train step of a narrow VoxelNet (the sparse backbone on a (8, 64, 64) grid)
+    on the card: every stride-1 3x3 conv of the RPN and head is one K3 forward, one
+    K5 and one dgrad (K7 where chained, K4 elsewhere), and the loss matches the same
+    step on a CPU copy."""
+    import copy
+
+    import numpy as np
+
+    from tdal_torch.core.voxel import VoxelConfig
+    from tdal_torch.models.builder import init_detector
+    from tdal_torch.models.center_head import center_head_loss
+    from tdal_torch.models.detectors import VoxelNet
+    from tdal_torch.models.layers import FusedConvBN
+
+    torch.backends.cudnn.allow_tf32 = False
+    vox = VoxelConfig((-8.0, -8.0, -2.0, 8.0, 8.0, 4.0), (0.25, 0.25, 0.75), 5, 4000)
+    tasks = [dict(num_class=3, class_names=("VEHICLE", "PEDESTRIAN", "CYCLIST"))]
+    model = init_detector(VoxelNet(vox, tasks, rpn_layer_nums=(2, 2), rpn_ds_filters=(32, 64),
+                                   rpn_us_filters=(32, 32), sparse_middle=True),
+                          torch.Generator().manual_seed(0))
+    sites = sum(isinstance(m, FusedConvBN) for m in model.modules())
+    # chained: all but the stride-1 stage's entry, the strided stage's first layer and
+    # the head's shared conv
+    chained = sites - 3
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(-8, 8, (2, 3000, 5)).astype(np.float32)
+    pts[..., 2] = rng.uniform(-1.9, 3.9, (2, 3000))
+    pts = torch.from_numpy(pts)
+    hm = torch.zeros(2, 8, 8, 3)
+    hm[:, 2:4, 3:5, 0] = 0.5
+    tg = {"hm": [hm], "anno_box": [torch.randn(2, 4, 8)], "ind": [torch.randint(0, 64, (2, 4))],
+          "mask": [torch.ones(2, 4, dtype=torch.uint8)], "cat": [torch.zeros(2, 4, dtype=torch.long)]}
+    losses = []
+    for dev in (cuda, torch.device("cpu")):
+        m = copy.deepcopy(model).to(dev).train()
+        before = dict(cv.launches)
+        total, _ = center_head_loss(m(pts.to(dev)),
+                                    {k: [v.to(dev) for v in vs] for k, vs in tg.items()},
+                                    [1.0] * 8)
+        total.backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert {k: cv.launches[k] - before[k] for k in before} == {
+                "conv3x3_fwd_stats": sites, "conv3x3_fwd": sites - chained,
+                "conv3x3_dgrad_act": chained, "conv3x3_wgrad": sites}
+        losses.append(float(total.detach()))
+    assert np.isfinite(losses[0]) and losses[0] == pytest.approx(losses[1], rel=1e-4)
