@@ -112,16 +112,37 @@ nothing of JAX or of ``tdal``, and exits non-zero on any failure. Phases:
    alone, the first stage unchanged, predict's frames/s, and one RoI head step against
    a CPU copy on the same RoIs, features, draws and dropout masks, with the unbiased
    running variance as a control that must fail;
-10. one line ``{"kernels": [...]}`` (K1, K2, K3, K4, K5/K6, K7, and K4 again as the
-   benchmark prototype's function), each kernel's ``launches`` from phases 8 and 9;
-11. the last line ``{"ok": true, "device": {...}}``. The seconds each phase took are
+10. data parallelism (``tdal_torch.parallel.mesh``) with phase 6's weights. (a) One
+   PointPillars train step of the Waymo PP config at a global batch of 4 on two gloo
+   ranks sharing the card (NCCL refuses two ranks on one device), against the
+   single-process step on the card: the loss, every gradient, the parameters after the
+   update and the running statistics, held by phase 6's comparison with its noise floor
+   measured on the card (8x the change under a permutation of the batch and two
+   mirrored pairs of rounding-level weight changes); each reading is printed as a share
+   of its tolerance, both ranks must end with the same state, and two controls (per-rank
+   BN statistics, per-rank loss normalizers) must fail it. (b) ``train_detector`` as one
+   rank of an NCCL group (a warm epoch, then 2 timed epochs of 2 steps at batch 4, the
+   conv launch counters from 0), its training frames/s beside phase 6's, the host
+   seconds that building the whole global batch on every rank adds to a step, and the
+   scaling reading: 12 train steps at 4 frames a card, no checkpoint writes. (c) The
+   static labeler's step (production widths, 8 sets, fresh from seed 0) in (a)'s ranks
+   against its single-process step, with phase 8's floor measured on the card, its
+   knife-edge sets taken out, and the same two controls. (d) Where the machine has two
+   cards, (a)'s step over NCCL across them, its ``train_detector`` frames/s (a smoke
+   figure: 2 frames a card, checkpoint writes included) and the scaling reading at a
+   global batch of 8 against (b)'s; otherwise the line ``one card: (d) not run``;
+11. one line ``{"kernels": [...]}`` (K1, K2, K3, K4, K5/K6, K7, and K4 again as the
+   benchmark prototype's function), each kernel's ``launches`` from phases 8, 9 and
+   10(b);
+12. the last line ``{"ok": true, "device": {...}}``. The seconds each phase took are
    printed before the ``kernels`` line.
 
 ``--noise-probe STATES`` builds and then runs only ``noise_probe``: on the card, how
 often phase 6's comparison would fail a step that differs by rounding alone.
 ``--offboard-only`` builds and then runs only phase 8, from a fresh detector (seed 0)
 in place of phase 6's weights, and prints no ``kernels`` line; ``--voxelnet-only``
-builds and then runs only phase 9.
+builds and then runs only phase 9; ``--dp-only`` builds and then runs only phase 10,
+from a fresh detector.
 """
 
 from __future__ import annotations
@@ -129,6 +150,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import itertools
 import json
 import logging
 import math
@@ -857,11 +879,15 @@ GRAD_NOISE_MARGIN = 8  # gradients within 8x the measured noise floor
 ULP_PERTURBATION = 2.0**-19
 
 
-def step_with_grads(model, batch, device, cfg, n_steps_total, perturb=0.0, perturb_seed=1):
+def step_with_grads(model, batch, device, cfg, n_steps_total, perturb=0.0, perturb_seed=1,
+                    mesh=None):
     """One train step of a copy of ``model`` on ``device``: (loss, gradients, state
     after the AdamW update, lr of the step, library error), on the CPU in float64.
     ``perturb`` != 0 first scales every parameter by 1 + perturb * u, u uniform in
     [-1, 1] from ``perturb_seed`` (so -perturb moves each weight the other way).
+    With a data-parallel ``mesh`` the step takes this rank's rows of ``batch``, its
+    gradients are summed over the ranks before the update, and the loss and library
+    errors are summed over them too.
 
     The library error of each SepHead's final conv (a cuDNN or oneDNN conv, not a
     kernel of the port) is the largest distance of its f32 weight gradient from a
@@ -869,6 +895,7 @@ def step_with_grads(model, batch, device, cfg, n_steps_total, perturb=0.0, pertu
     from torch.nn.grad import conv2d_weight
 
     from tdal_torch.models.center_head import center_head_loss
+    from tdal_torch.parallel.mesh import all_reduce_grads, scope, shard_batch, sum_logs
     from tdal_torch.pipeline.detector_engine import TARGET_KEYS, batch_to_device
     from tdal_torch.runtime.schedules import adam_with_schedule, one_cycle
 
@@ -881,18 +908,24 @@ def step_with_grads(model, batch, device, cfg, n_steps_total, perturb=0.0, pertu
     lr, mom = one_cycle(cfg.lr_config["lr_max"], n_steps_total)
     opt = adam_with_schedule(m.parameters(), lr, cfg.optimizer["wd"],
                              cfg.grad_clip["max_norm"], mom)
-    b = batch_to_device(batch, device)
+    b = batch_to_device(shard_batch(batch, mesh), device)
     head = cfg.model["bbox_head"]
     inputs = {}
     for t, sep in enumerate(m.head.tasks):
         sep.branch_convbn0.register_forward_hook(
             lambda mod, args, out, t=t: inputs.__setitem__(t, out.detach()))
-    preds = m(b["points"])
-    total, _ = center_head_loss(preds, {k: b[k] for k in TARGET_KEYS},
-                                head["code_weights"], head["weight"])
-    outs = [p[n] for sep, p in zip(m.head.tasks, preds) for n in sep.names]
-    couts = torch.autograd.grad(total, outs, retain_graph=True)
-    total.backward()
+    with scope(mesh):
+        preds = m(b["points"])
+        total, _ = center_head_loss(preds, {k: b[k] for k in TARGET_KEYS},
+                                    head["code_weights"], head["weight"])
+        outs = [p[n] for sep, p in zip(m.head.tasks, preds) for n in sep.names]
+        couts = torch.autograd.grad(total, outs, retain_graph=True)
+        total.backward()
+        finals = {f"head.tasks.{t}.final_conv_weight": sep.final_conv_weight.grad.detach()
+                  .cpu().double() for t, sep in enumerate(m.head.tasks)}  # this rank's
+        if mesh is not None:
+            all_reduce_grads(m.parameters(), mesh)
+        loss = float(sum_logs({"loss": total.detach()})["loss"])
     grads = {n: p.grad.detach().cpu().double() for n, p in m.named_parameters()}
     lib_err, k = {}, 0
     for t, sep in enumerate(m.head.tasks):
@@ -901,11 +934,15 @@ def step_with_grads(model, batch, device, cfg, n_steps_total, perturb=0.0, pertu
         dw = conv2d_weight(inputs[t].double().permute(0, 3, 1, 2), sep.final_conv_weight.shape,
                            g.permute(0, 3, 1, 2), padding=1) * sep.final_conv_mask
         name = f"head.tasks.{t}.final_conv_weight"
-        lib_err[name] = float((grads[name] - dw.cpu()).abs().max())
+        lib_err[name] = float((finals[name] - dw.cpu()).abs().max())
     del inputs, couts
+    if mesh is not None:  # the ranks' errors on their rows bound that of their sum
+        with mesh:
+            lib_err = {k: float(v) for k, v in sum_logs(
+                {k: torch.tensor(v, device=device) for k, v in lib_err.items()}).items()}
     opt.step()
     state = {k: v.detach().cpu().double() for k, v in m.state_dict().items()}
-    return float(total.detach()), grads, state, lr(0), lib_err
+    return loss, grads, state, lr(0), lib_err
 
 
 @contextlib.contextmanager
@@ -1565,11 +1602,15 @@ def labeler_segment(root: Path, seg: dict):
     return annos, static, dynamic
 
 
-def labeler_step(model, loss_fn, inputs, labels, draws, device, perturb=0.0, perturb_seed=1):
+def labeler_step(model, loss_fn, inputs, labels, draws, device, perturb=0.0, perturb_seed=1,
+                 mesh=None):
     """One train step (AdamW on the labelers' schedule) of a copy of ``model`` on
     ``device``: (loss, gradients and the state after the update in float64 on the CPU,
     the seg mask, the seg logits). ``perturb`` != 0 first scales every parameter by
-    1 + perturb * u, u uniform in [-1, 1] from ``perturb_seed``."""
+    1 + perturb * u, u uniform in [-1, 1] from ``perturb_seed``. With a data-parallel
+    ``mesh`` the step takes this rank's rows (mask and logits are its rows), and its
+    loss and gradients are summed over the ranks."""
+    from tdal_torch.parallel.mesh import all_reduce_grads, rank_rows, scope, sum_logs
     from tdal_torch.runtime.schedules import adam_with_schedule, labeler_step_decay
 
     m = copy.deepcopy(model).to(device).train()
@@ -1579,14 +1620,18 @@ def labeler_step(model, loss_fn, inputs, labels, draws, device, perturb=0.0, per
             for p in m.parameters():
                 p.mul_(1 + perturb * (2 * torch.rand(p.shape, generator=gen) - 1).to(device))
     opt = adam_with_schedule(m.parameters(), labeler_step_decay(LABEL_LR, 1), 1e-4)
-    out = m(*(x.to(device) for x in inputs), **{k: v.to(device) for k, v in draws.items()})
-    total = loss_fn(out, {k: v.to(device) for k, v in labels.items()})["total_loss"]
-    total.backward()
+    rows = lambda t: rank_rows(t, mesh).to(device)  # noqa: E731
+    with scope(mesh):
+        out = m(*(rows(x) for x in inputs), **{k: rows(v) for k, v in draws.items()})
+        total = loss_fn(out, {k: rows(v) for k, v in labels.items()})["total_loss"]
+        total.backward()
+        if mesh is not None:
+            all_reduce_grads(m.parameters(), mesh)
+        loss = float(sum_logs({"loss": total.detach()})["loss"])
     grads = {n: p.grad.detach().cpu().double() for n, p in m.named_parameters()}
     opt.step()
     state = {k: v.detach().cpu().double() for k, v in m.state_dict().items()}
-    return (float(total.detach()), grads, state, out["mask"].cpu(),
-            out["logits"].detach().cpu())
+    return loss, grads, state, out["mask"].cpu(), out["logits"].detach().cpu()
 
 
 class _TorchBatchNorm(torch.nn.BatchNorm1d):
@@ -1615,6 +1660,42 @@ def _subset(inputs, labels, draws, keep):
     pick = lambda t: t[keep]  # noqa: E731
     return ([pick(x) for x in inputs], {k: pick(v) for k, v in labels.items()},
             {k: pick(v) for k, v in draws.items()})
+
+
+def compare_labeler_steps(model, ref, c, noise):
+    """A labeler step ``c`` (``labeler_step``'s loss, gradients and state) against the
+    reference step ``ref``, with the noise floor of the reference's gradients in
+    ``noise`` ((term, gradients) pairs): (worst readings, failures). The loss within
+    1e-4 relative, the BN running statistics ``STAT_TOL``, the gradients within
+    ``GRAD_NOISE_MARGIN`` times the floor or 1e-5 of the leaf's largest gradient, the
+    parameters after the update 1e-5 (1 + |p|), plus Adam's sign either way."""
+    loss_c, g_c, s_c = c[:3]
+    worst = {"loss_rel_err": abs(loss_c - ref[0]) / abs(ref[0]),
+             "grad_err_over_tol": 0.0, "param_err_over_allowed": 0.0,
+             "stat_rel_err": 0.0}
+    fails = []
+    for k, want in ref[1].items():
+        floor = max(float((want - g[k]).abs().max()) for _, g in noise)
+        tol = max(1e-5 * float(want.abs().max()) + 1e-12, GRAD_NOISE_MARGIN * floor)
+        err = float((g_c[k] - want).abs().max())
+        worst["grad_err_over_tol"] = max(worst["grad_err_over_tol"], err / tol)
+        if err > tol:
+            fails.append(f"grad {k}: {err:.3e} > {tol:.3e} (floor {floor:.3e})")
+        old = model.state_dict()[k].detach().cpu().double()
+        allowed = 1e-5 * (1 + old.abs()) + (want.abs() <= tol) * 2.0 * LABEL_LR
+        ratio = float(((s_c[k] - ref[2][k]).abs() / allowed).max())
+        worst["param_err_over_allowed"] = max(worst["param_err_over_allowed"], ratio)
+        if ratio > 1:
+            fails.append(f"param {k}: {ratio:.2f} x allowed")
+    for k, want in ref[2].items():
+        if "running" in k:
+            rel = float((s_c[k] - want).abs().max() / want.abs().max().clamp_min(1e-6))
+            worst["stat_rel_err"] = max(worst["stat_rel_err"], rel)
+            if rel > STAT_TOL:
+                fails.append(f"BN statistic {k}: rel err {rel:.3e}")
+    if worst["loss_rel_err"] > 1e-4:
+        fails.append(f"loss {loss_c} against {ref[0]}")
+    return worst, fails
 
 
 def check_labeler_step_against_cpu(name, model, loss_fn, inputs, labels, device,
@@ -1674,38 +1755,10 @@ def check_labeler_step_against_cpu(name, model, loss_fn, inputs, labels, device,
     if not noise:
         raise AssertionError(f"{name}: every noise term moved a seg decision")
 
-    def compare(c):
-        loss_c, g_c, s_c = c[:3]
-        worst = {"loss_rel_err": abs(loss_c - ref[0]) / abs(ref[0]),
-                 "grad_err_over_tol": 0.0, "param_err_over_allowed": 0.0,
-                 "stat_rel_err": 0.0}
-        fails = []
-        for k, want in ref[1].items():
-            floor = max(float((want - g[k]).abs().max()) for _, g in noise)
-            tol = max(1e-5 * float(want.abs().max()) + 1e-12, GRAD_NOISE_MARGIN * floor)
-            err = float((g_c[k] - want).abs().max())
-            worst["grad_err_over_tol"] = max(worst["grad_err_over_tol"], err / tol)
-            if err > tol:
-                fails.append(f"grad {k}: {err:.3e} > {tol:.3e} (floor {floor:.3e})")
-            old = model.state_dict()[k].detach().cpu().double()
-            allowed = 1e-5 * (1 + old.abs()) + (want.abs() <= tol) * 2.0 * LABEL_LR
-            ratio = float(((s_c[k] - ref[2][k]).abs() / allowed).max())
-            worst["param_err_over_allowed"] = max(worst["param_err_over_allowed"], ratio)
-            if ratio > 1:
-                fails.append(f"param {k}: {ratio:.2f} x allowed")
-        for k, want in ref[2].items():
-            if "running" in k:
-                rel = float((s_c[k] - want).abs().max() / want.abs().max().clamp_min(1e-6))
-                worst["stat_rel_err"] = max(worst["stat_rel_err"], rel)
-                if rel > STAT_TOL:
-                    fails.append(f"BN statistic {k}: rel err {rel:.3e}")
-        if worst["loss_rel_err"] > 1e-4:
-            fails.append(f"loss {loss_c} against {ref[0]}")
-        return worst, fails
-
-    sound, failures = compare(card)
-    control, control_fails = compare(labeler_step(with_torch_batchnorm(model), loss_fn,
-                                                  inputs, labels, draws, device))
+    sound, failures = compare_labeler_steps(model, ref, card, noise)
+    control, control_fails = compare_labeler_steps(
+        model, ref, labeler_step(with_torch_batchnorm(model), loss_fn, inputs, labels, draws,
+                                 device), noise)
     log(f"  {name}: one train step of {len(inputs[0])} sets on the card against a CPU copy "
         f"({knife_sets} knife-edge sets taken out; noise terms {[t for t, _ in noise]}, "
         f"dropped {[t for t, _ in dropped]}): " + ", ".join(
@@ -2491,6 +2544,411 @@ def phase_voxelnet(device) -> dict:
     return dict(train=train, infer=infer, two_stage=two, seconds=[t_a, t_b, t_c])
 
 
+# ---------------------------------------------------------------------------
+# phase 10: data parallelism on the card
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2
+# (c): the static one-box labeler at its production widths, fresh from seed 0
+DP_LABELER_SETS, DP_LABELER_SEED = 8, 5
+# the scaling reading of (b) and (d): train steps at the config's samples_per_gpu of 4
+# frames a card (a global batch of 4 times the ranks), after warm steps, without
+# train_detector's checkpoint writes
+DP_PER_CARD, DP_WARM_STEPS, DP_TIMED_STEPS = 4, 2, 12
+
+
+def dp_labeler_inputs(seed: int = DP_LABELER_SEED):
+    """(inputs, labels, draws) of ``DP_LABELER_SETS`` static sets at the production
+    widths (4096 points, 512 object points), made with numpy from ``seed``."""
+    rng = np.random.default_rng(seed)
+    b, n = DP_LABELER_SETS, NPOINTS_STATIC
+
+    def boxes():
+        return np.concatenate([rng.normal(size=(b, 3)), rng.uniform(1, 5, (b, 3)),
+                               rng.uniform(-3, 3, (b, 1))], 1).astype(np.float32)
+
+    t = torch.from_numpy
+    inputs = [t(rng.normal(size=(b, n, 3)).astype(np.float32)), t(boxes()), t(boxes())]
+    labels = {"mask_label": t((rng.random((b, n)) < 0.5).astype(np.float32)),
+              "center_label": t(rng.normal(size=(b, 3)).astype(np.float32)),
+              "heading_class_label": t(rng.integers(0, 12, b).astype(np.int32)),
+              "heading_residuals_label": t(rng.uniform(-0.25, 0.25, b).astype(np.float32)),
+              "size_class_label": t(rng.integers(0, 3, b).astype(np.int32)),
+              "size_residuals_label": t(rng.normal(0, 0.3, (b, 3)).astype(np.float32))}
+    draws = {"noise": t(rng.random((b, n), dtype=np.float32)),
+             "keep": t(rng.random((b, n, 128)) >= 0.5)}
+    return inputs, labels, draws
+
+
+def labeler_dp_check(mesh, inputs, labels, draws) -> dict:
+    """(c), on each rank: the static labeler's data-parallel step (fresh from seed 0)
+    against its single-process step on the same card and sets, with the noise floor of
+    phase 8 measured on the card (a permutation of the sets and two mirrored pairs of
+    rounding-level weight changes; a term that moves a seg decision is dropped). Sets
+    whose seg mask differs between the two steps must differ only at knife-edge points
+    (|logit margin| under ``SEG_KNIFE_EDGE``); they are taken out (with one more where
+    the count left is odd, so that the sets still split over the ranks). Both controls
+    must fail. Then the sharded eval step (K1/K2 on each rank's rows) must give the
+    single-process eval's loss terms and metrics within 1e-5 of max(1, |x|). Rank 0
+    returns the readings, every rank its state after the step and its K1/K2 launches
+    in the sharded eval."""
+    import torch.distributed as dist
+
+    from tdal_torch.ops import fused_pointnet as fp
+    from tdal_torch.parallel.controls import CONTROLS, control
+    from tdal_torch.parallel.mesh import rank_rows, shard_batch
+    from tdal_torch.pipeline.factories import make_labeler
+    from tdal_torch.pipeline.labeler_engine import make_steps
+    from tdal_torch.runtime.train_state import TrainState
+
+    dev = mesh.device
+    model, loss_fn, inputs_fn, _ = make_labeler("one_box_est", device=dev, seed=0)
+    knife_sets = 0
+    for _ in range(3):
+        single = labeler_step(model, loss_fn, inputs, labels, draws, dev)
+        dp = labeler_step(model, loss_fn, inputs, labels, draws, dev, mesh=mesh)
+        mine, lg = rank_rows(single[3], mesh), rank_rows(single[4], mesh)
+        differ = (dp[3] != mine).any(dim=1)
+        margin = (lg[..., 1] - lg[..., 0]).abs()
+        edge = SEG_KNIFE_EDGE * max(1.0, float(single[4].abs().max()))
+        beyond = bool((margin[dp[3] != mine] > edge).any())
+        flags = torch.zeros(len(inputs[0]) + 1, device=dev)  # the sets that differ, and
+        flags[rank_rows(torch.arange(len(inputs[0])), mesh).to(dev)] = differ.float().to(dev)
+        flags[-1] = float(beyond)  # a difference away from a knife edge, on any rank
+        dist.all_reduce(flags, group=mesh.group)
+        if flags[-1] > 0:
+            raise AssertionError("(c): a seg mask differs between the data-parallel and "
+                                 "the single-process step away from a knife edge")
+        differ = (flags[:-1] > 0).cpu()
+        if not differ.any():
+            break
+        knife_sets += int(differ.sum())
+        keep = torch.nonzero(~differ).flatten()
+        keep = keep[: len(keep) - len(keep) % mesh.world]
+        inputs, labels, draws = _subset(inputs, labels, draws, keep)
+    else:
+        raise AssertionError(f"(c): seg masks still differ after {knife_sets} knife-edge sets")
+    if len(inputs[0]) < DP_LABELER_SETS // 2:
+        raise AssertionError(f"(c): {knife_sets} of {DP_LABELER_SETS} sets on knife edges")
+    controls = {}
+    for name in CONTROLS:
+        with control(name):
+            controls[name] = labeler_step(model, loss_fn, inputs, labels, draws, dev,
+                                          mesh=mesh)
+    _, eval_step = make_steps(model, loss_fn, inputs_fn)
+    batch = dict(zip(("pts", "init_box", "bbox_gt"), inputs), **labels)
+    state = TrainState(model, None)
+    eval_single = {k: float(v) for k, v in eval_step(state, batch)[0].items()}
+    for k in fp.launches:
+        fp.launches[k] = 0
+    with mesh:
+        eval_dp = {k: float(v) for k, v in eval_step(state, shard_batch(batch, mesh))[0].items()}
+    out = {"state": dp[2], "eval_launches": dict(fp.launches)}
+    if mesh.rank != 0:
+        return out
+    perm = torch.arange(len(inputs[0])).roll(1)
+    p_inputs, p_labels, p_draws = _subset(inputs, labels, draws, perm)
+    steps = [("permutation", labeler_step(model, loss_fn, p_inputs, p_labels, p_draws, dev),
+              perm)]
+    for sign, s in PERTURBATIONS:
+        steps.append((f"{'+' if sign > 0 else '-'}2^-19 weights, draw {s}", labeler_step(
+            model, loss_fn, inputs, labels, draws, dev, perturb=sign * ULP_PERTURBATION,
+            perturb_seed=s), None))
+    noise, dropped = [], []
+    for term, res, order in steps:
+        mask = res[3] if order is None else res[3][torch.argsort(order)]
+        (noise if torch.equal(mask, single[3]) else dropped).append((term, res[1]))
+    if not noise:
+        raise AssertionError("(c): every noise term moved a seg decision")
+    sound, failures = compare_labeler_steps(model, single, dp, noise)
+    eval_err = max(abs(eval_dp[k] - v) / max(1.0, abs(v)) for k, v in eval_single.items())
+    if not eval_err <= 1e-5:
+        failures.append(f"the sharded eval's metrics differ by {eval_err:.3e} of max(1, |x|)")
+    readings = {"sound": sound}
+    for name, step in controls.items():
+        readings[name], fails = compare_labeler_steps(model, single, step, noise)
+        if not fails:
+            failures.append(f"the control ({name}) passes the comparison")
+    out.update(readings=readings, failures=failures, knife_edge_sets=knife_sets,
+               eval_rel_err=eval_err, eval_metrics=eval_dp,
+               sets=len(inputs[0]), noise_terms=[t for t, _ in noise],
+               dropped_noise_terms=[t for t, _ in dropped])
+    return out
+
+
+def dp_train_timing(mesh, pp_state, root: Path) -> dict:
+    """``train_detector`` with ``mesh`` from ``pp_state``: a warm epoch, then
+    ``PP_TIMED_EPOCHS`` epochs with the conv launch counters from 0 (each rank's steps
+    must launch phase 6's per-step counts), synchronised; training frames/s of the
+    global batch ``PP_BATCH``. Also the host seconds to build a global batch and one
+    rank's share of it (every rank builds the whole batch and keeps its rows), and the
+    scaling reading: ``DP_TIMED_STEPS`` train steps at ``DP_PER_CARD`` frames a rank,
+    their batches built ahead on a thread as ``train_detector`` builds them, no
+    checkpoint written."""
+    from tdal_torch.data.detection import collate_detection
+    from tdal_torch.ops import conv3x3 as cv
+    from tdal_torch.parallel.mesh import rank_step
+    from tdal_torch.pipeline.detector_engine import make_detector_steps
+    from tdal_torch.pipeline.detector_run import _prefetch, train_detector
+
+    cfg, model, state, ds, _ = pp_training(root)
+    model.load_state_dict(pp_state)
+    head = cfg.model["bbox_head"]
+    logger = logging.getLogger("chip_smoke")
+
+    def run(tag, epochs):
+        train_detector(state, ds, head["code_weights"], n_epoch=epochs, batch_size=PP_BATCH,
+                       logger=logger, work_dir=root / tag, weight=head["weight"],
+                       log_every=1, mesh=mesh)
+        torch.cuda.synchronize()
+
+    run("warm", PP_WARM_EPOCHS)
+    for k in cv.launches:
+        cv.launches[k] = 0
+    t0 = time.perf_counter()
+    run("timed", PP_TIMED_EPOCHS)
+    timed_s = time.perf_counter() - t0
+    launches = dict(cv.launches)
+    for name, n in launches.items():
+        if n != PP_TIMED * PP_LAUNCHES[name]:
+            raise AssertionError(f"rank {mesh.rank}: {name} launched {n} times in {PP_TIMED} "
+                                 f"steps, expected {PP_LAUNCHES[name]} per step")
+    build = {}
+    for rows in (PP_BATCH, PP_BATCH // DP_WORLD):
+        times = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            collate_detection([ds[i] for i in range(rows)])
+            times.append(time.perf_counter() - t1)
+        build[rows] = statistics.median(times)
+    global_batch = DP_PER_CARD * mesh.world
+
+    def batches():  # epochs of the training set, each shuffled from its own seed
+        for epoch in itertools.count():
+            idx = np.random.default_rng(epoch).permutation(len(ds))
+            for start in range(0, len(ds) - global_batch + 1, global_batch):
+                yield collate_detection([ds[int(i)] for i in idx[start:start + global_batch]])
+
+    step = make_detector_steps(state.model, head["code_weights"], head["weight"])
+    n = DP_WARM_STEPS + DP_TIMED_STEPS
+    for i, batch in enumerate(_prefetch(itertools.islice(batches(), n))):
+        if i == DP_WARM_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        with rank_step(mesh, batch) as rows:
+            step(state, rows)
+    torch.cuda.synchronize()
+    steps_s = time.perf_counter() - t0
+    return dict(world=mesh.world, backend=mesh.backend, timed_s=timed_s,
+                frames_per_s=PP_TIMED * PP_BATCH / timed_s, launches=launches,
+                host_build_s={str(k): v for k, v in build.items()},
+                scaling=dict(global_batch=global_batch, steps=DP_TIMED_STEPS, seconds=steps_s,
+                             frames_per_s=DP_TIMED_STEPS * global_batch / steps_s))
+
+
+def _dp_rank(mesh, job_file, out_dir):
+    """A spawned rank of phase 10: the PointPillars step of ``job_file``'s model and
+    batch (sound, and under each control), then (c)'s labeler check and the
+    ``train_detector`` timing where the job asks for them. Rank 0 saves its steps and
+    readings, the others their states."""
+    from tdal_torch.parallel.controls import control
+    from tdal_torch.runtime.config import Config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    job = torch.load(job_file, weights_only=False)
+    cfg = Config(job["cfg"])
+    steps = {}
+    for name in (None, *job["controls"]):
+        with control(name):
+            steps[name] = step_with_grads(job["model"], job["batch"], mesh.device, cfg,
+                                          job["n_steps_total"], mesh=mesh)
+    out = {"steps": steps} if mesh.rank == 0 else {"state": steps[None][2]}
+    if job["labeler"] is not None:
+        out["labeler"] = labeler_dp_check(mesh, *job["labeler"])
+    if job["train"]:
+        out["train"] = dp_train_timing(mesh, job["pp_state"], Path(out_dir) / f"rank{mesh.rank}")
+    torch.save(out, Path(out_dir) / f"{mesh.rank}.pt")
+
+
+def share_line(readings: dict) -> str:
+    """Each reading of ``compare_steps`` as a share of its tolerance."""
+    return (f"loss {readings['loss_rel_err'] / 1e-4:.4g}, gradients "
+            f"{readings['grad_err_over_tol']:.4g}, parameters after the update "
+            f"{readings['param_err_over_allowed']:.4g}, running statistics "
+            f"{readings['stat_rel_err'] / 1e-4:.4g} (relative bound) and "
+            f"{readings['stat_err_over_tol']:.4g} (noise floor)")
+
+
+def check_dp_steps(model, batch, cfg, n_steps_total, device, devices, backend, root: Path,
+                   controls=None, labeler=None, pp_state=None) -> dict:
+    """The PointPillars train step of ``model`` (on the CPU) on ``batch`` in
+    ``len(devices)`` spawned ranks over ``backend`` against the single-process step on
+    ``device``, held by ``compare_steps`` with phase 6's noise floor measured on the
+    card (the single-process step under a permutation of the batch and two mirrored
+    pairs of rounding-level weight changes; ``GRAD_NOISE_MARGIN`` times it). Every rank
+    must end with the same state, and each control (default: every one of
+    ``tdal_torch.parallel.controls.CONTROLS``) must fail on its gradients. With
+    ``labeler``, (c)'s check runs in the same ranks; with ``pp_state``, the ranks also
+    time ``train_detector`` from those weights."""
+    from tdal_torch.parallel.controls import CONTROLS
+    from tdal_torch.parallel.mesh import spawn
+
+    controls = CONTROLS if controls is None else controls
+    t0 = time.perf_counter()
+    single = step_with_grads(model, batch, device, cfg, n_steps_total)
+    noise = noise_steps_of(model, batch, device, cfg, n_steps_total)
+    noise_grads, noise_states = [n[1] for n in noise], [n[2] for n in noise]
+    del noise
+    torch.cuda.empty_cache()
+    t_single = time.perf_counter() - t0
+    job = root / "dp_job.pt"
+    torch.save(dict(model=model, batch=batch, cfg=cfg.to_dict(), n_steps_total=n_steps_total,
+                    controls=controls, labeler=labeler, pp_state=pp_state,
+                    train=pp_state is not None), job)
+    t0 = time.perf_counter()
+    spawn(_dp_rank, (str(job), str(root)), devices=devices, backend=backend)
+    t_ranks = time.perf_counter() - t0
+    ranks = [torch.load(root / f"{r}.pt", weights_only=False) for r in range(len(devices))]
+    steps = ranks[0]["steps"]
+    reference = (single[0], single[1], single[2], single[4])
+    as_card = lambda s: (s[0], s[1], s[2], s[4])  # noqa: E731
+    worst, failures, leaves = compare_steps(model, as_card(steps[None]), reference, noise_grads,
+                                            single[3], noise_states)
+    for other in ranks[1:]:
+        unequal = [k for k, v in steps[None][2].items() if not torch.equal(v, other["state"][k])]
+        if unequal:
+            failures.append(f"the ranks' states differ after the step: {unequal[:3]}")
+    readings = {"sound": worst}
+    log(f"  PointPillars, global batch {len(batch['points'])} on {len(devices)} ranks "
+        f"({backend}, {', '.join(devices)}) against one process on {device}: loss "
+        f"{steps[None][0]:.6f} / {single[0]:.6f}; {share_line(worst)}; single-process "
+        f"step and its {len(NOISE_TERMS)} noise steps {t_single:.1f} s, the ranks "
+        f"(spawn, build, steps) {t_ranks:.1f} s")
+    for ratio, k, err, scale, nz in sorted(leaves, reverse=True)[:3]:
+        log(f"    gradient {k}: error {err:.3e} = {ratio:.3f} of tolerance; largest "
+            f"gradient {scale:.3e}, noise floor {nz:.3e}")
+    for name in controls:
+        readings[name], c_fail, _ = compare_steps(model, as_card(steps[name]), reference,
+                                                  noise_grads, single[3], noise_states)
+        log(f"  control ({name}): {len(c_fail)} failures; {share_line(readings[name])}")
+        if not readings[name]["grad_err_over_tol"] > 1:
+            failures.append(f"control {name}: its gradients pass the comparison")
+    out = dict(readings=readings, loss_dp=steps[None][0], loss_single=single[0],
+               single_s=t_single, ranks_s=t_ranks, devices=devices, backend=backend)
+    if labeler is not None:
+        lab = ranks[0]["labeler"]
+        failures += [f"(c) {f}" for f in lab["failures"]]
+        for other in ranks[1:]:
+            if any(not torch.equal(v, other["labeler"]["state"][k])
+                   for k, v in lab["state"].items()):
+                failures.append("(c): the ranks' states differ after the step")
+        log(f"  (c) the static labeler, {lab['sets']} sets at production widths on "
+            f"{len(devices)} ranks against one process ({lab['knife_edge_sets']} knife-edge "
+            f"sets taken out; noise terms {lab['noise_terms']}, dropped "
+            f"{lab['dropped_noise_terms']}):")
+        for name, r in lab["readings"].items():
+            log(f"    {name}: loss {r['loss_rel_err'] / 1e-4:.4g}, gradients "
+                f"{r['grad_err_over_tol']:.4g}, parameters {r['param_err_over_allowed']:.4g}, "
+                f"running statistics {r['stat_rel_err'] / STAT_TOL:.4g} of their tolerance")
+        eval_launches = {k: sum(r["labeler"]["eval_launches"][k] for r in ranks)
+                         for k in lab["eval_launches"]}
+        log(f"    the sharded eval against one process: {lab['eval_rel_err'] / 1e-5:.4g} of its "
+            f"tolerance; K1/K2 launches on the {len(devices)} ranks {eval_launches}")
+        per_rank = int(torch.device(devices[0]).type == "cuda")  # the CPU runs the twins
+        if any(r["labeler"]["eval_launches"] != {k: per_rank for k in eval_launches}
+               for r in ranks):
+            failures.append(f"(c): the sharded eval's K1/K2 launches {eval_launches}, "
+                            f"{per_rank} each a rank expected")
+        out["labeler"] = {k: v for k, v in lab.items() if k != "state"}
+        out["labeler"]["eval_launches"] = eval_launches
+    if pp_state is not None:
+        out["train"] = [r["train"] for r in ranks]
+    if failures:
+        raise AssertionError("phase 10: " + "; ".join(failures[:10]))
+    return out
+
+
+def dp_world_one(device, pp_state, root: Path) -> dict:
+    """(b): ``train_detector`` as one rank of a process group over NCCL."""
+    import torch.distributed as dist
+
+    from tdal_torch.parallel.mesh import free_port, make_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        return dp_train_timing(make_mesh(torch.device("cuda", torch.cuda.current_device())),
+                               pp_state, root)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_data_parallel(device, pp_state, phase6_fps=None) -> dict:
+    """Phase 10: (a) two gloo ranks on one card against one process, with two controls,
+    and (c) the static labeler likewise, in the same ranks; (b) ``train_detector`` as
+    one NCCL rank beside phase 6's frames/s; (d) on two cards over NCCL where there are
+    two."""
+    from tdal_torch.data.detection import collate_detection
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        cfg, model, _, ds, total_steps = pp_training(root / "a")
+        model = model.cpu()
+        model.load_state_dict(pp_state)
+        batch = first_frames(collate_detection([ds[i] for i in range(PP_BATCH)]), PP_BATCH)
+        log("  (a) PointPillars on two gloo ranks on one card, and (c) the static labeler")
+        (root / "ranks_a").mkdir()
+        out["a"] = check_dp_steps(model, batch, cfg, total_steps, device, ["cuda:0"] * DP_WORLD,
+                                  "gloo", root / "ranks_a", labeler=dp_labeler_inputs())
+        out["c"] = out["a"].pop("labeler")
+        seconds = [time.perf_counter() - t0]
+        log("  (b) train_detector as one rank over NCCL")
+        b = dp_world_one(device, pp_state, root / "b")
+        gap = (b["host_build_s"][str(PP_BATCH)] - b["host_build_s"][str(PP_BATCH // DP_WORLD)])
+        log(f"    {b['frames_per_s']:.2f} training frames/s at world size 1 ({PP_TIMED} steps "
+            f"in {b['timed_s']:.3f} s) against phase 6's "
+            + (f"{phase6_fps:.2f}" if phase6_fps else "(not run)") + " without "
+            f"a process group; launches {b['launches']}; host: a global batch of {PP_BATCH} "
+            f"builds in {b['host_build_s'][str(PP_BATCH)]:.3f} s, a rank's {PP_BATCH // DP_WORLD} "
+            f"rows of it in {b['host_build_s'][str(PP_BATCH // DP_WORLD)]:.3f} s: building the "
+            f"whole batch on every rank adds {gap:.3f} s a step at world size {DP_WORLD} "
+            f"(on the prefetch thread, behind the step)")
+        sc = b["scaling"]
+        log(f"    scaling reading at world size 1: {sc['steps']} train steps at "
+            f"{DP_PER_CARD} frames a card in {sc['seconds']:.3f} s, "
+            f"{sc['frames_per_s']:.2f} training frames/s (no checkpoint writes)")
+        out["b"] = dict(b, phase6_frames_per_s=phase6_fps, added_host_s=gap)
+        seconds.append(time.perf_counter() - t0 - sum(seconds))
+        if torch.cuda.device_count() >= 2:
+            log("  (d) PointPillars on two cards over NCCL")
+            (root / "ranks_d").mkdir()
+            d = check_dp_steps(model, batch, cfg, total_steps, device, ["cuda:0", "cuda:1"],
+                               "nccl", root / "ranks_d", controls=(), pp_state=pp_state)
+            fps = d["train"][0]["frames_per_s"]
+            log(f"    train_detector at a global batch of {PP_BATCH} ({PP_TIMED} steps, "
+                f"checkpoint writes included; a smoke figure): {fps:.2f} training frames/s "
+                f"on 2 cards against {b['frames_per_s']:.2f} on one rank: "
+                f"{fps / b['frames_per_s']:.2f}x")
+            sd = d["train"][0]["scaling"]
+            log(f"    scaling: {sd['steps']} train steps at {DP_PER_CARD} frames a card "
+                f"(global batch {sd['global_batch']}) in {sd['seconds']:.3f} s, "
+                f"{sd['frames_per_s']:.2f} training frames/s on 2 cards against "
+                f"{sc['frames_per_s']:.2f} on one: {sd['frames_per_s'] / sc['frames_per_s']:.3f}x "
+                f"(2.000x would be linear)")
+            out["d"] = d
+        else:
+            log("  one card: (d) not run")
+            out["d"] = "one card: not run"
+        seconds.append(time.perf_counter() - t0 - sum(seconds))
+    log(f"  phase 10 seconds: (a) + (c) {seconds[0]:.1f}, (b) {seconds[1]:.1f}, (d) "
+        f"{seconds[2]:.1f}")
+    out["seconds"] = seconds
+    return out
+
+
 # a rounding-level relative change of every weight: the probe's stand-in for the
 # card-vs-CPU rounding difference, which costs a minute and a half of CPU to measure
 PROBE_ROUNDING = 2.0**-22
@@ -2562,6 +3020,8 @@ def main() -> int:
                         help="build, then run only phase 8 from a fresh detector")
     parser.add_argument("--voxelnet-only", action="store_true",
                         help="build, then run only phase 9")
+    parser.add_argument("--dp-only", action="store_true",
+                        help="build, then run only phase 10 from a fresh detector")
     parser.add_argument("--library-times", action="store_true",
                         help="only time phase 5's cuDNN calls in benchmark mode and print "
                              "them as one JSON line (phase 5 runs this in a child process)")
@@ -2641,6 +3101,15 @@ def main() -> int:
         log("phase 9 VoxelNet and the two-stage detector (alone)")
         print(json.dumps(phase_voxelnet(device), default=str))
         return 0
+    if args.dp_only:
+        from tdal_torch.models.builder import build_detector, build_voxel_config
+        from tdal_torch.runtime.config import Config
+
+        cfg = Config.fromfile(PP_CONFIG)
+        fresh = build_detector(cfg.model, build_voxel_config(cfg.voxel_generator), "cpu", 0)
+        log("phase 10 data parallelism (alone, from a fresh detector)")
+        print(json.dumps(phase_data_parallel(device, fresh.state_dict()), default=str))
+        return 0
 
     lap(2)
 
@@ -2662,6 +3131,7 @@ def main() -> int:
 
     log("phase 6 PointPillars training on the Waymo config")
     train, pp_cfg, pp_model = phase_train(device)
+    pp_state = {k: v.detach().cpu().clone() for k, v in pp_model.state_dict().items()}
     lap(6)
 
     log("phase 7 PointPillars inference on the Waymo config")
@@ -2677,18 +3147,24 @@ def main() -> int:
     log("phase 9 sparse VoxelNet training and inference, and the two-stage detector")
     voxelnet = phase_voxelnet(device)
     lap(9)
+    torch.cuda.empty_cache()
+
+    log("phase 10 data parallelism: two ranks on one card, one NCCL rank, two cards")
+    dp = phase_data_parallel(device, pp_state, train["frames_per_s"])
+    lap(10)
 
     entries = []
     for name, by_case in kres.items():
         main_case = by_case["static f32"]  # the main path's mode, at the static labeler's shape
         entries.append(dict(
             name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-            launches=offboard["k1k2_launches"][name],
+            launches=offboard["k1k2_launches"][name] + dp["c"]["eval_launches"][name],
             launches_by_path={
                 "phase 4 stages 2-6": chain["launches"][name],
                 "phase 8 labeler eval": sum(r["launches"][name]
                                             for r in offboard["labelers"].values()),
-                "phase 8 chain": offboard["k1k2_launches"][name]},
+                "phase 8 chain": offboard["k1k2_launches"][name],
+                "phase 10 (c) sharded eval, both ranks": dp["c"]["eval_launches"][name]},
             max_abs_err=main_case["max_abs_err"],
             ms=main_case["ms"], plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
             bound_by=main_case["bound_by"], library_ms=None,
@@ -2710,11 +3186,14 @@ def main() -> int:
         entries.append(dict(
             name=name, route="cuda", source=CONV_SOURCE,
             replaces=PROTO["replaces"] if proto else CONV_REPLACES[name],
-            launches=offboard["conv_launches"][key] + voxelnet["train"]["launches"][key],
+            launches=(offboard["conv_launches"][key] + voxelnet["train"]["launches"][key]
+                      + dp["b"]["launches"][key]),
             launches_by_path={"phase 6 timed steps": train["launches"][key],
                               "phase 8 detector rounds": offboard["conv_launches"][key],
                               "phase 9 VoxelNet timed steps":
-                                  voxelnet["train"]["launches"][key]},
+                                  voxelnet["train"]["launches"][key],
+                              "phase 10 (b) timed steps, one NCCL rank":
+                                  dp["b"]["launches"][key]},
             max_abs_err=main_case["max_abs_err"], ms=main_case["ms"],
             plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
             bound_by=main_case["bound_by"], library_ms=main_case["library_ms"],
@@ -2735,6 +3214,7 @@ def main() -> int:
     log(f"  inference summary: {json.dumps(infer)}")
     log(f"  offboard summary: {json.dumps(offboard, default=str)}")
     log(f"  VoxelNet summary: {json.dumps(voxelnet, default=str)}")
+    log(f"  data-parallel summary: {json.dumps(dp, default=str)}")
     log(f"  seconds by phase (phase 2 from the start): {json.dumps(seconds)}")
     log(f"card: {kind} | {smi}")
     print(json.dumps({"kernels": entries}))

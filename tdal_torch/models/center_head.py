@@ -11,6 +11,10 @@ block-diagonal (``final_conv_weight`` OIHW, ``final_conv_bias``; the mask is app
 to the weight, so its gradient outside the blocks is zero), run by cuDNN as tdal
 leaves it to XLA. Head BatchNorms are the reference's default ``BatchNorm2d``: eps
 1e-5, momentum 0.1.
+
+Under an active data-parallel mesh the losses' normalizers (the focal loss's positive
+count, the reg loss's mask sum) are global sums, taken with no gradient, so each rank's
+loss is its share of the loss of the global batch.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from torch import nn
 
 from tdal_torch.core.nms import circle_nms, rotated_nms
 from tdal_torch.models.layers import FusedConvBN, conv_nhwc
+from tdal_torch.parallel.mesh import all_reduce_sum
 
 _HEAD_BN = dict(momentum=0.1, eps=1e-5)
 COMMON_HEADS = {"reg": (2, 2), "height": (1, 2), "dim": (3, 2), "rot": (2, 2)}
@@ -110,7 +115,7 @@ def fast_focal_loss(out, target, ind, mask, cat):
     neg_loss = (torch.log(1 - out) * torch.pow(out, 2) * gt).sum()
     pos_all = _gather_feat(out.reshape(b, -1, out.shape[-1]), ind)
     pos_pred = (pos_all * F.one_hot(cat, out.shape[-1]).to(pos_all.dtype)).sum(-1)
-    num_pos = mask.sum()
+    num_pos = all_reduce_sum(mask.sum().detach())
     pos_loss = (torch.log(pos_pred) * torch.pow(1 - pos_pred, 2) * mask).sum()
     return torch.where(num_pos == 0, -neg_loss,
                        -(pos_loss + neg_loss) / num_pos.clamp_min(1))
@@ -122,7 +127,7 @@ def reg_loss(output, mask, ind, target):
     b = output.shape[0]
     pred = _gather_feat(output.reshape(b, -1, output.shape[-1]), ind)
     m = mask.to(pred.dtype)[..., None]
-    loss = torch.abs(pred * m - target * m) / (m.sum() + 1e-4)
+    loss = torch.abs(pred * m - target * m) / (all_reduce_sum(m.sum().detach()) + 1e-4)
     return loss.sum(dim=(0, 1))
 
 

@@ -9,6 +9,10 @@ taken in f32 over every axis but the last, the *biased* variance feeds the runni
 average, and ``momentum`` is the weight of the batch statistic (flax 0.99 -> 0.01,
 flax 0.9 -> 0.1). ``BatchNorm`` uses E[x^2] - E[x]^2 clipped at 0 (flax's fast
 variance); ``MaskedBatchNorm`` keeps padded rows out of its two-pass statistics.
+Under an active data-parallel mesh (``tdal_torch.parallel.mesh``) every statistic is
+over the global batch, as in tdal's sharded step: the sums are all-reduced (their
+cotangents too, in the backward) before the mean and variance are formed, and the
+counts are global.
 
 ``FusedConvBN`` in train mode runs ``tdal_torch.ops.conv3x3.conv3x3_act_stats``: on a
 CUDA tensor the conv, its output moments and the producer's normalise + ReLU
@@ -25,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tdal_torch.ops.conv3x3 import conv3x3_act_stats, conv3x3_bias
+from tdal_torch.parallel.mesh import all_reduce_sum, world_size
 
 
 def conv_nhwc(x, weight, bias=None, stride: int = 1, padding: int = 0, dtype=None):
@@ -65,8 +70,10 @@ class BatchNorm(nn.Module):
         if self.training:
             xf = x.float()
             axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(dim=axes)
-            var = ((xf * xf).mean(dim=axes) - mean * mean).clamp_min(0.0)
+            n = xf[..., 0].numel() * world_size()
+            sums = all_reduce_sum(torch.stack([xf.sum(dim=axes), (xf * xf).sum(dim=axes)]))
+            mean = sums[0] / n
+            var = (sums[1] / n - mean * mean).clamp_min(0.0)
             update_running(self, mean, var)
         else:
             mean, var = self.running_mean, self.running_var
@@ -84,9 +91,12 @@ class MaskedBatchNorm(BatchNorm):
             xf = x.float()
             axes = tuple(range(x.dim() - 1))
             w = mask[..., None].expand(x.shape).float()
-            denom = w.sum(dim=axes).clamp_min(1.0)
-            mean = (xf * w).sum(dim=axes) / denom
-            var = ((xf - mean) ** 2 * w).sum(dim=axes) / denom
+            # two passes, each summed over the mesh: the mean first, then the centred
+            # squares (a one-pass E[x^2] - E[x]^2 rounds differently from tdal)
+            sums = all_reduce_sum(torch.stack([(xf * w).sum(dim=axes), w.sum(dim=axes)]))
+            denom = sums[1].clamp_min(1.0)
+            mean = sums[0] / denom
+            var = all_reduce_sum(((xf - mean) ** 2 * w).sum(dim=axes)) / denom
             update_running(self, mean, var)
         else:
             mean, var = self.running_mean, self.running_var
@@ -165,7 +175,10 @@ class FusedConvBN(nn.Module):
             in_scale, in_shift = pre
         y, stats = conv3x3_act_stats(x.to(dt).contiguous(), hwio(self.weight).to(dt), cbias,
                                      in_scale, in_shift, pre is not None)
-        n = float(y.numel() // f)
+        # the moments over the global batch: their cotangents, summed over the mesh in
+        # the backward, are what K5/K7 take through _ConvActStats' backward
+        stats = all_reduce_sum(stats)
+        n = float(y.numel() // f * world_size())
         mean = stats[0] / n
         var = (stats[1] / n - mean * mean).clamp_min(0.0)
         update_running(self, mean, var)

@@ -35,6 +35,7 @@ from tdal_torch.ops.fused_pointnet import (
     pointnet_seg_logits,
     seg_weight_streams,
 )
+from tdal_torch.parallel.mesh import rank_rows, world_size
 
 BOX_PRED_DIM = 3 + NUM_HEADING_BIN * 2 + NUM_SIZE_CLUSTER * 4  # 59
 
@@ -159,11 +160,14 @@ def train_draws(pts, generator: torch.Generator) -> dict:
     """The random draws of one labeler train forward over ``pts`` (B, N, C), from
     ``generator`` (on ``pts``' device), in this order: ``noise`` (B, N) uniform in
     [0, 1), the gather's sort key, and ``keep`` (B, N, 128) bool, the seg head's
-    dropout keep-mask with keep probability 1 - ``DROPOUT_RATE``."""
-    b, n = pts.shape[:2]
+    dropout keep-mask with keep probability 1 - ``DROPOUT_RATE``. Under an active
+    data-parallel mesh both are drawn over the global batch (B times the world size
+    rows, from the same generator on every rank) and this rank's rows are kept, so
+    each row gets the draws of a single-process step."""
+    b, n = pts.shape[0] * world_size(), pts.shape[1]
     noise = torch.rand((b, n), generator=generator, device=pts.device)
     keep = torch.rand((b, n, 128), generator=generator, device=pts.device) >= DROPOUT_RATE
-    return {"noise": noise, "keep": keep}
+    return {"noise": rank_rows(noise), "keep": rank_rows(keep)}
 
 
 def parse_box_pred(box_pred):

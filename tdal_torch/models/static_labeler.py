@@ -6,6 +6,9 @@ init box (B, 7) in the labeling frame (``tdal_torch.data.track_datasets``). In
 training the forwards also take the random draws of ``tdal_torch.models.pointnet.
 train_draws``: ``noise`` orders the object-point gather, ``keep`` is the seg head's
 dropout mask.
+
+The losses' means are ``partial_mean``s: under an active data-parallel mesh each rank's
+loss is its share of the mean over the global batch.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from tdal_torch.models.pointnet import (
     gather_object_points,
     parse_box_pred,
 )
+from tdal_torch.parallel.mesh import partial_mean
 
 NUM_OBJECT_POINT = 512  # static_model.py:14
 NUM_POINT = 4096  # static_model.py:15
@@ -135,12 +139,12 @@ def huber(error, delta: float = 1.0):
     abs_error = error.abs()
     quadratic = abs_error.clamp_max(delta)
     linear = abs_error - quadratic
-    return (0.5 * quadratic**2 + delta * linear).mean()
+    return partial_mean(0.5 * quadratic**2 + delta * linear)
 
 
 def _nll(logits, labels):
     """Mean negative log-likelihood of integer ``labels`` under ``logits`` (B, K)."""
-    return -torch.gather(F.log_softmax(logits, dim=1), 1, labels.long()[:, None]).mean()
+    return -partial_mean(torch.gather(F.log_softmax(logits, dim=1), 1, labels.long()[:, None]))
 
 
 def _seg_loss(logits, mask_label):

@@ -13,7 +13,9 @@ Port of ``tdal/models/two_stage.py``, batch-major:
   input too: (B, 3, K) uniforms, one row each for the fg, hard-bg and easy-bg orders
   (``proposal_draws``), where tdal splits a key per sample and then in three;
 - ``assign_roi_targets``, ``roi_losses``, ``generate_predicted_boxes`` and
-  ``two_stage_post_process`` (sqrt(iou * score) rescoring).
+  ``two_stage_post_process`` (sqrt(iou * score) rescoring). Under an active
+  data-parallel mesh the losses' normalizers are global sums, so each rank's loss is
+  its share of the global batch's.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from torch import nn
 
 from tdal_torch.core.iou import boxes_iou_3d
 from tdal_torch.models.layers import BatchNorm
+from tdal_torch.parallel.mesh import all_reduce_sum
 
 # ---------------------------------------------------------------------------
 # BEV feature extraction
@@ -311,13 +314,13 @@ def roi_losses(rcnn_cls, rcnn_reg, targets, code_weights, cls_weight=1.0, reg_we
     p = torch.sigmoid(rcnn_cls.reshape(-1)).clamp(1e-7, 1 - 1e-7)
     bce = -(labels * torch.log(p) + (1 - labels) * torch.log(1 - p))
     valid = (labels >= 0).float()
-    loss_cls = (bce * valid).sum() / valid.sum().clamp_min(1.0) * cls_weight
+    loss_cls = (bce * valid).sum() / all_reduce_sum(valid.sum()).clamp_min(1.0) * cls_weight
     code_size = rcnn_reg.shape[-1]
     reg_targets = targets["gt_of_rois"][..., :code_size].reshape(-1, code_size)
     fg = (targets["reg_valid_mask"].reshape(-1) > 0).float()
     l1 = (rcnn_reg.reshape(-1, code_size) - reg_targets).abs()
     l1 = l1 * torch.as_tensor(code_weights, dtype=l1.dtype, device=l1.device)
-    loss_reg = (l1 * fg[:, None]).sum() / fg.sum().clamp_min(1.0) * reg_weight
+    loss_reg = (l1 * fg[:, None]).sum() / all_reduce_sum(fg.sum()).clamp_min(1.0) * reg_weight
     return loss_cls, loss_reg
 
 

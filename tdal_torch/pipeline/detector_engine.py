@@ -4,7 +4,10 @@ Port of ``tdal/pipeline/detector_engine.py``: the train step of
 ``make_detector_steps`` (the forward in train mode, BatchNorm running statistics
 updated in place, the CenterHead loss, the backward, one optimizer step), its predict
 step (``make_predict_step``: the eval forward, decode and NMS), the double-flip predict
-step (``make_tta_predict_step``) and ``predictions_to_host``.
+step (``make_tta_predict_step``) and ``predictions_to_host``. Under an active
+data-parallel mesh the train step is given this rank's rows of the batch; its BatchNorm
+statistics and loss normalizers are global (``models/layers.py``,
+``models/center_head.py``), and its logs are summed over the ranks.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 
 from tdal_torch.models.center_head import center_head_loss, predict
 from tdal_torch.models.tta import average_double_flip_preds
+from tdal_torch.parallel.mesh import sum_logs
 from tdal_torch.runtime.train_state import TrainState
 
 TARGET_KEYS = ("hm", "anno_box", "ind", "mask", "cat")
@@ -49,7 +53,7 @@ def make_detector_steps(detector, code_weights: Sequence[float], weight: float =
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
         state.apply_gradients()
-        return {k: v.detach() for k, v in logs.items()}
+        return sum_logs({k: v.detach() for k, v in logs.items()})
 
     return train_step
 

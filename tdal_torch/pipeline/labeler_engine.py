@@ -7,6 +7,11 @@ a CUDA tensor runs K1 + K2), ``labeler_metrics`` and ``average_metrics``. The ra
 draws of a train step (gather noise, dropout mask) come from a ``torch.Generator`` on
 the model's device that the caller seeds; every metric stays on the device until
 ``average_metrics`` reads it.
+
+Under an active data-parallel mesh (``tdal_torch.parallel.mesh``) a step is given this
+rank's rows of the batch (``shard_batch``); its loss terms and metrics are shares of the
+global batch's (``partial_mean``), summed over the ranks (``sum_logs``), so every rank
+returns the single-process step's values.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import torch
 
 from tdal_torch.core.iou import compute_box3d_iou
 from tdal_torch.models.pointnet import train_draws
+from tdal_torch.parallel.mesh import partial_mean, sum_logs
 from tdal_torch.runtime.train_state import TrainState
 
 LABEL_KEYS = (
@@ -44,9 +50,10 @@ def batch_inputs(batch, inputs_fn: Callable, device) -> list:
 
 @torch.no_grad()
 def labeler_metrics(output, labels) -> dict:
-    """Seg accuracy, IoU 2D/3D and IoU3D accuracy at 0.7 and 0.5 of one batch, as
-    device scalars. For the two-box model the heading labels come from the output
-    (relative to box one), as in the reference (static_train.py:107-120)."""
+    """Seg accuracy, IoU 2D/3D and IoU3D accuracy at 0.7 and 0.5 of one batch (this
+    rank's shares under a mesh), as device scalars. For the two-box model the heading
+    labels come from the output (relative to box one), as in the reference
+    (static_train.py:107-120)."""
     h_cls = output.get("heading_class_label_two", labels["heading_class_label"])
     h_res = output.get("heading_residuals_label_two", labels["heading_residuals_label"])
     iou2d, iou3d = compute_box3d_iou(
@@ -56,11 +63,11 @@ def labeler_metrics(output, labels) -> dict:
     )
     seg_correct = output["logits"].argmax(dim=2) == labels["mask_label"].long()
     return {
-        "seg_acc": seg_correct.float().mean(),
-        "iou2d": iou2d.mean(),
-        "iou3d": iou3d.mean(),
-        "iou3d_acc_07": (iou3d >= 0.7).float().mean(),
-        "iou3d_acc_05": (iou3d >= 0.5).float().mean(),
+        "seg_acc": partial_mean(seg_correct.float()),
+        "iou2d": partial_mean(iou2d),
+        "iou3d": partial_mean(iou3d),
+        "iou3d_acc_07": partial_mean((iou3d >= 0.7).float()),
+        "iou3d_acc_05": partial_mean((iou3d >= 0.5).float()),
     }
 
 
@@ -82,7 +89,8 @@ def make_steps(model, loss_fn: Callable, inputs_fn: Callable):
         losses = loss_fn(out, labels)
         losses["total_loss"].backward()
         state.apply_gradients()
-        return {**{k: v.detach() for k, v in losses.items()}, **labeler_metrics(out, labels)}
+        return sum_logs({**{k: v.detach() for k, v in losses.items()},
+                         **labeler_metrics(out, labels)})
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch):
@@ -90,7 +98,7 @@ def make_steps(model, loss_fn: Callable, inputs_fn: Callable):
         model.eval()
         out = model(*batch_inputs(batch, inputs_fn, device))
         labels = batch_labels(batch, device)
-        return {**loss_fn(out, labels), **labeler_metrics(out, labels)}, out
+        return sum_logs({**loss_fn(out, labels), **labeler_metrics(out, labels)}), out
 
     return train_step, eval_step
 

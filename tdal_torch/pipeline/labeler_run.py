@@ -20,6 +20,7 @@ from tdal_torch.core.iou import labeler_box3d_iou
 from tdal_torch.data.track_datasets import Prefetcher, batch_iterator, parallel_batch_iterator
 from tdal_torch.data.waymo_schema import AnnoStore, box7_from_box9, transform_box_np
 from tdal_torch.device import resolve_device
+from tdal_torch.parallel.mesh import rank_step, start_run
 from tdal_torch.pipeline.labeler_engine import average_metrics, make_steps
 from tdal_torch.runtime.checkpoint import CheckpointManager
 from tdal_torch.runtime.logging_utils import MetricsWriter
@@ -34,7 +35,8 @@ _DECODE_KEYS = ("heading_scores", "heading_residuals", "size_scores", "size_resi
 
 def train_labeler(model, loss_fn, inputs_fn, state: TrainState, train_ds, val_ds,
                   n_epoch: int, batch_size: int, logger, ckpt_dir=None, seed: int = 0,
-                  generator: torch.Generator | None = None, num_workers: int = 0):
+                  generator: torch.Generator | None = None, num_workers: int = 0,
+                  mesh=None):
     """Train ``state.model`` (``model``, on its device) for ``n_epoch`` epochs.
 
     Each epoch shuffles with numpy seed ``seed + epoch`` and drops the short last
@@ -42,23 +44,36 @@ def train_labeler(model, loss_fn, inputs_fn, state: TrainState, train_ds, val_ds
     model's device; None makes one seeded with ``seed``). After each epoch the model
     is evaluated on ``val_ds`` (batches padded to ``batch_size``); the best eval
     ``iou3d_acc_07`` (``>=``, so the later of equals) is saved under ``ckpt_dir``.
-    Returns (state, best meta). Parity: static_train.py:149-165."""
+    Returns (state, best meta). Parity: static_train.py:149-165.
+
+    With a data-parallel ``mesh`` ``batch_size`` is the global batch: every rank builds
+    each batch whole and takes its rows, draws over the global batch (``train_draws``)
+    and starts from rank 0's weights; the eval is sharded the same way, with its metrics
+    over the global batch, so every rank makes the same best-checkpoint choice. Rank 0
+    alone logs and writes the metrics and checkpoints."""
     device = next(model.parameters()).device
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(seed)
+    main, logger = start_run(mesh, batch_size, model, logger)
+    if not main:
+        ckpt_dir = None
     train_step, eval_step = make_steps(model, loss_fn, inputs_fn)
     mgr = CheckpointManager(ckpt_dir) if ckpt_dir is not None else None
     writer = MetricsWriter(Path(ckpt_dir) / "logs") if ckpt_dir is not None else None
     best_acc, best_meta = -1.0, {}
 
+    def on_rows(step, batch, *args):
+        with rank_step(mesh, batch) as rows:
+            return step(state, rows, *args)
+
     def run_eval():
-        return average_metrics([eval_step(state, batch)[0] for batch in
+        return average_metrics([on_rows(eval_step, batch)[0] for batch in
                                 batch_iterator(val_ds, batch_size, pad_to_full=True)])
 
     for epoch in range(n_epoch):
         batches = parallel_batch_iterator(train_ds, batch_size, num_workers=num_workers,
                                           shuffle=True, seed=seed + epoch, drop_last=True)
-        train_m = average_metrics([train_step(state, batch, generator)
+        train_m = average_metrics([on_rows(train_step, batch, generator)
                                    for batch in Prefetcher(batches)])
         logger.info(f"=== Epoch [{epoch + 1}/{n_epoch}] ===")
         logger.info(f"[Train] loss: {train_m.get('total_loss', float('nan')):.4f}, "

@@ -12,7 +12,9 @@ runs in eval mode under ``torch.no_grad()`` (its running statistics stay as they
 and ``trainable_parameters`` gives the optimizer the RoI head's parameters only: no
 update and no weight decay reach the first stage, as tdal's ``optax.multi_transform``
 with ``set_to_zero`` (``make_frozen_tx``). The first stage's maps are decoded in f32
-(a bf16 first stage's boxes and NMS would be bf16 in tdal).
+(a bf16 first stage's boxes and NMS would be bf16 in tdal). Under an active
+data-parallel mesh the train step is given this rank's rows, draws over the global
+batch and keeps its rows, and sums its logs over the ranks.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from tdal_torch.models.two_stage import (
     get_box_centers, proposal_draws, proposal_targets, roi_head_draws, roi_losses,
     two_stage_post_process,
 )
+from tdal_torch.parallel.mesh import rank_rows, sum_logs, world_size
 from tdal_torch.pipeline.detector_engine import TARGET_KEYS
 from tdal_torch.runtime.train_state import TrainState
 
@@ -72,10 +75,14 @@ class TwoStageEngine(nn.Module):
 
     def draws(self, b: int, k: int, generator: torch.Generator, device=None) -> dict:
         """A train step's random inputs: the proposal draws (B, 3, K) and the RoI head's
-        dropout keep-masks (B, roi_per_image, width)."""
-        return {"proposal": proposal_draws(b, k, generator, device),
-                "dropout": roi_head_draws(self.roi_head, b, self.roi_cfg.roi_per_image,
-                                          generator, device)}
+        dropout keep-masks (B, roi_per_image, width). Under an active data-parallel mesh
+        ``b`` is this rank's rows: they are drawn over the global batch (from the same
+        generator on every rank) and this rank's rows kept."""
+        g = b * world_size()
+        proposal = proposal_draws(g, k, generator, device)
+        dropout = roi_head_draws(self.roi_head, g, self.roi_cfg.roi_per_image, generator,
+                                 device)
+        return {"proposal": rank_rows(proposal), "dropout": [rank_rows(m) for m in dropout]}
 
 
 def _gt_of(engine, gt_boxes_and_cls):
@@ -119,7 +126,7 @@ def make_two_stage_steps(engine: TwoStageEngine):
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
         state.apply_gradients()
-        return {k: v.detach() for k, v in logs.items()}
+        return sum_logs({k: v.detach() for k, v in logs.items()})
 
     @torch.no_grad()
     def predict_step(state: TrainState, points):

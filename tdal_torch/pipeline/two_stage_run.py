@@ -6,7 +6,8 @@ first stage from the config's ``first_stage_cfg.pretrained`` (a checkpoint of
 ``train_detector``, or the newest one in its directory; reference single_stage.py:
 33-40), ``train_two_stage`` trains the RoI head (and the first stage, unless frozen) on
 proposal targets with a checkpoint per epoch, and ``run_two_stage_inference`` runs the
-sqrt-rescored two-stage prediction over a dataset.
+sqrt-rescored two-stage prediction over a dataset. ``train_two_stage`` takes a
+data-parallel mesh as ``train_detector`` does (tdal's ``mesh`` path).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from tdal_torch.parallel.mesh import rank_step, start_run
 from tdal_torch.pipeline.detector_engine import predictions_to_host
 from tdal_torch.pipeline.detector_run import detection_batches
 from tdal_torch.pipeline.two_stage_engine import make_two_stage_steps
@@ -43,15 +45,19 @@ def load_pretrained_first(engine, cfg, logger) -> bool:
 
 
 def train_two_stage(state: TrainState, train_ds, n_epoch: int, batch_size: int, logger,
-                    work_dir, seed: int = 0, log_every: int = 10) -> TrainState:
+                    work_dir, seed: int = 0, log_every: int = 10, mesh=None) -> TrainState:
     """Train ``state.model`` (a ``TwoStageEngine``) for ``n_epoch`` epochs: each step's
     proposal draws and dropout masks from one ``torch.Generator`` seeded with ``seed``;
     windowed logs to the logger and ``work_dir/logs/metrics.jsonl``, a checkpoint per
-    epoch under ``work_dir/checkpoints``."""
+    epoch under ``work_dir/checkpoints``. With a data-parallel ``mesh`` ``batch_size`` is
+    the global batch, each rank trains on its rows from rank 0's weights, and rank 0
+    alone logs and writes files."""
+    main, logger = start_run(mesh, batch_size, state.model, logger)
     train_step, _ = make_two_stage_steps(state.model)
     generator = torch.Generator().manual_seed(seed)
     metrics = Path(work_dir) / "logs" / "metrics.jsonl"
-    metrics.parent.mkdir(parents=True, exist_ok=True)
+    if main:
+        metrics.parent.mkdir(parents=True, exist_ok=True)
     steps_per_epoch = max(1, len(train_ds) // batch_size)
     window = []
     for epoch in range(n_epoch):
@@ -59,7 +65,10 @@ def train_two_stage(state: TrainState, train_ds, n_epoch: int, batch_size: int, 
         for i, batch in enumerate(
             detection_batches(train_ds, batch_size, shuffle=True, seed=seed + epoch)
         ):
-            logs = train_step(state, batch, generator=generator)
+            with rank_step(mesh, batch) as rows:
+                logs = train_step(state, rows, generator=generator)
+            if not main:
+                continue
             window.append(logs)
             if (i + 1) % log_every == 0:
                 avg = {k: float(np.mean([float(w[k]) for w in window])) for k in logs}
@@ -69,7 +78,8 @@ def train_two_stage(state: TrainState, train_ds, n_epoch: int, batch_size: int, 
                     f.write(json.dumps({"mode": "train", "step": state.step, **avg}) + "\n")
                 window.clear()
         logger.info(f"Epoch {epoch + 1} done in {time.time() - t0:.1f}s")
-        state.save(Path(work_dir) / "checkpoints" / f"step_{state.step:08d}.pt")
+        if main:
+            state.save(Path(work_dir) / "checkpoints" / f"step_{state.step:08d}.pt")
     return state
 
 

@@ -1,7 +1,7 @@
 """Logging, metric rows and seeding of the port's drivers and CLIs.
 
 Port of ``tdal/runtime/logging_utils.py`` (``create_logger``, ``MetricsWriter``,
-``fix_seed`` and the reference seed, tools/utils.py:24-44).
+``fix_seed`` and the reference seed, tools/utils.py:24-44), and ``quiet_logger``.
 """
 
 from __future__ import annotations
@@ -37,6 +37,12 @@ def create_logger(log_file=None, name: str = "tdal_torch", level=logging.INFO):
             fh.setFormatter(fmt)
             logger.addHandler(fh)
     return logger
+
+
+def quiet_logger() -> logging.Logger:
+    """A logger that emits nothing: the training loops' and CLIs' logger on data-parallel
+    ranks other than 0."""
+    return logging.Logger("tdal_torch.quiet", level=logging.CRITICAL + 1)
 
 
 def fix_seed(seed: int = DEFAULT_SEED) -> int:

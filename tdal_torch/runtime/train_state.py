@@ -4,7 +4,9 @@ Port of ``tdal/runtime/train_state.py``. Where tdal's state is an immutable pytr
 (params + batch_stats + opt_state), the port's holds the ``nn.Module`` (parameters and
 BatchNorm running statistics, which the train-mode forward updates in place) and the
 optimizer; ``apply_gradients`` takes one optimizer step on the gradients left in
-``.grad`` by the backward pass.
+``.grad`` by the backward pass. Under an active data-parallel mesh it first sums them
+over the ranks (``tdal_torch.parallel.mesh.all_reduce_grads``), so the global-norm clip
+and AdamW see the gradient of the global batch and every rank takes the same update.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ from pathlib import Path
 import torch
 from torch import nn
 
+from tdal_torch.parallel.mesh import active, all_reduce_grads
+
 
 @dataclasses.dataclass
 class TrainState:
@@ -23,6 +27,10 @@ class TrainState:
     step: int = 0
 
     def apply_gradients(self):
+        mesh = active()
+        if mesh is not None:
+            all_reduce_grads([p for g in self.optimizer.param_groups for p in g["params"]],
+                             mesh)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         self.step += 1

@@ -1,5 +1,7 @@
 """The shared body of the labeler CLIs (static_train/static_eval, dynamic_train/
-dynamic_eval): data loading, training and label emission."""
+dynamic_eval): data loading, training and label emission. ``--data_parallel`` trains
+over the ranks of a ``torchrun`` launch, or one rank per visible card
+(``tdal_torch.parallel.mesh.launch``), with ``--batch_size`` the global batch."""
 
 from __future__ import annotations
 
@@ -16,9 +18,10 @@ from tdal_torch.pipeline.labeler_run import (
     build_token2idx, postprocess_dynamic, postprocess_static, predict_final_boxes,
     sort_detections, train_labeler,
 )
+from tdal_torch.parallel.mesh import is_main, launch
+from tdal_torch.runtime.logging_utils import create_logger, fix_seed, quiet_logger
 from tdal_torch.runtime.schedules import adam_with_schedule, labeler_step_decay
 from tdal_torch.runtime.train_state import TrainState, param_count
-from tdal_torch.tools._common import refuse
 
 DATASETS = {"static": (StaticTrackDataset, "trackStatic"),
             "dynamic": (DynamicTrackDataset, "trackDynamic")}
@@ -36,14 +39,22 @@ def add_train_args(parser, npoints: int, n_object_points: int):
     parser.add_argument("--work_dir", default=None)
     parser.add_argument("--num_workers", type=int, default=0,
                         help="spawned batch-building workers (0 = in-process)")
-    parser.add_argument("--data_parallel", action="store_true")
+    parser.add_argument("--data_parallel", action="store_true",
+                        help="train over torchrun's ranks, or one rank per visible card")
 
 
-def train(args, kind: str, model_type: str, result_dir: Path, logger):
+def train(args, kind: str, model_type: str, result_dir: Path, log_file: Path):
     """static_train.py:168-230 / dynamic_train.py: the tracks, a 90/10 split, AdamW on
-    the step decay, ``train_labeler`` with the best checkpoint in ``result_dir``."""
-    if args.data_parallel:
-        refuse("--data_parallel (torch.distributed)")
+    the step decay, ``train_labeler`` with the best checkpoint in ``result_dir``, on
+    one device or, with ``--data_parallel``, over ranks (rank 0 logs to ``log_file``)."""
+    launch(_train_rank, (args, kind, model_type, result_dir, log_file), args.device,
+           data_parallel=args.data_parallel)
+
+
+def _train_rank(mesh, args, kind: str, model_type: str, result_dir: Path, log_file: Path):
+    fix_seed(args.seed)
+    logger = create_logger(log_file) if is_main(mesh) else quiet_logger()
+    device = args.device if mesh is None else mesh.device
     dataset_cls, prefix = DATASETS[kind]
     logger.info("Load track data")
     track = load_track_data(args.track, args.split, prefix=prefix)
@@ -55,7 +66,7 @@ def train(args, kind: str, model_type: str, result_dir: Path, logger):
     logger.info(f"train samples: {len(train_ds)}, val samples: {len(val_ds)}")
 
     model, loss_fn, inputs_fn, _ = make_labeler(model_type, args.n_object_points,
-                                                device=args.device, seed=args.seed)
+                                                device=device, seed=args.seed)
     logger.info(f"model params: {param_count(model)}")
     steps_per_epoch = max(1, len(train_ds) // args.batch_size)
     opt = adam_with_schedule(model.parameters(), labeler_step_decay(args.lr, steps_per_epoch),
@@ -64,7 +75,7 @@ def train(args, kind: str, model_type: str, result_dir: Path, logger):
     _, best = train_labeler(model, loss_fn, inputs_fn, TrainState(model, opt), train_ds,
                             val_ds, n_epoch=args.n_epoch, batch_size=args.batch_size,
                             logger=logger, ckpt_dir=result_dir, seed=args.seed,
-                            num_workers=args.num_workers)
+                            num_workers=args.num_workers, mesh=mesh)
     logger.info(f"Best: {best}")
     logger.info("Done.")
 

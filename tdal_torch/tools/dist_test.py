@@ -5,8 +5,8 @@ The detector over a split, in order -> ``<work_dir>/prediction.pkl`` keyed by to
 four-variant flip TTA; ``--evaluate`` writes det_annos and the proto rows. The
 checkpoint is a ``.pt`` of ``train``'s (or the newest one in a directory). A
 ``TwoStageDetector`` config runs ``run_two_stage_inference`` (sqrt-rescored RoI head
-predictions) with a two-stage checkpoint. Spatial sharding and the profiler hook are
-not ported yet.
+predictions) with a two-stage checkpoint. ``--profile_dir`` traces three batches of
+the middle third (``run_inference``'s hook). Spatial sharding is not ported yet.
 """
 
 import argparse
@@ -40,7 +40,8 @@ def parse_args():
     parser.add_argument("--speed_test", action="store_true")
     parser.add_argument("--double_flip", action="store_true", help="4-variant flip TTA")
     parser.add_argument("--evaluate", action="store_true", help="write det_annos/proto")
-    parser.add_argument("--profile_dir", default=None)
+    parser.add_argument("--profile_dir", default=None,
+                        help="write a torch.profiler trace of three middle batches there")
     parser.add_argument("--spatial_shards", type=int, default=1)
     add_device(parser)
     return parser.parse_args()
@@ -48,8 +49,6 @@ def parse_args():
 
 def main():
     args = parse_args()
-    if args.profile_dir:
-        refuse("--profile_dir")
     if args.spatial_shards > 1:
         refuse("--spatial_shards")
     cfg = Config.fromfile(args.config)
@@ -89,7 +88,8 @@ def main():
                                               speed_test=args.speed_test)
     else:
         detections = run_inference(state, ds, test_cfg, batch_size, logger,
-                                   speed_test=args.speed_test, double_flip=args.double_flip)
+                                   speed_test=args.speed_test, double_flip=args.double_flip,
+                                   profile_dir=args.profile_dir)
     dump_pickle(detections, work_dir / "prediction.pkl")
     logger.info(f"saved prediction.pkl ({len(detections)} frames)")
     if args.evaluate:

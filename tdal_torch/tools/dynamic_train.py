@@ -8,7 +8,7 @@ the step-decay schedule, the best checkpoint under ``<work_dir>/model``.
 import argparse
 from pathlib import Path
 
-from tdal_torch.runtime.logging_utils import DEFAULT_SEED, create_logger, fix_seed
+from tdal_torch.runtime.logging_utils import DEFAULT_SEED
 from tdal_torch.tools._common import add_device
 from tdal_torch.tools._labeler import add_train_args, train
 
@@ -21,10 +21,8 @@ def main():
     add_device(parser)
     args = parser.parse_args()
 
-    fix_seed(args.seed)
     work_dir = Path(args.work_dir) if args.work_dir else Path(args.track) / "dynamic"
-    logger = create_logger(work_dir / "log" / "train.txt")
-    train(args, "dynamic", "dynamic", work_dir / "model", logger)
+    train(args, "dynamic", "dynamic", work_dir / "model", work_dir / "log" / "train.txt")
 
 
 if __name__ == "__main__":

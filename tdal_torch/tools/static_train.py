@@ -8,7 +8,7 @@ epoch, the best checkpoint (eval acc@0.7) under ``<work_dir>/model/<model_type>`
 import argparse
 from pathlib import Path
 
-from tdal_torch.runtime.logging_utils import DEFAULT_SEED, create_logger, fix_seed
+from tdal_torch.runtime.logging_utils import DEFAULT_SEED
 from tdal_torch.tools._common import add_device
 from tdal_torch.tools._labeler import add_train_args, train
 
@@ -22,11 +22,9 @@ def main():
     add_device(parser)
     args = parser.parse_args()
 
-    fix_seed(args.seed)
     work_dir = Path(args.work_dir) if args.work_dir else Path(args.track) / "static"
-    result_dir = work_dir / "model" / args.model_type
-    logger = create_logger(work_dir / "log" / "train" / f"{args.model_type}.txt")
-    train(args, "static", args.model_type, result_dir, logger)
+    train(args, "static", args.model_type, work_dir / "model" / args.model_type,
+          work_dir / "log" / "train" / f"{args.model_type}.txt")
 
 
 if __name__ == "__main__":

@@ -1,12 +1,19 @@
 """Detector training: port of ``tools/train.py``.
 
-Config-driven CenterPoint training on one device: the model (PointPillars or
-VoxelNet), voxel generator, assigner and OneCycle'd AdamW from the config,
-``train_detector`` with a checkpoint per epoch under ``<work_dir>/checkpoints`` and,
-with val infos, AP/APH every ``--val_every`` epochs. A ``TwoStageDetector`` config
-trains its RoI head with ``train_two_stage`` on the first stage named by
-``first_stage_cfg.pretrained`` (frozen where the config says ``freeze``). The
-data-parallel mesh, the GT-aug sampler and the profiler hook are not ported yet.
+Config-driven CenterPoint training: the model (PointPillars or VoxelNet), voxel
+generator, assigner and OneCycle'd AdamW from the config, ``train_detector`` with a
+checkpoint per epoch under ``<work_dir>/checkpoints`` and, with val infos, AP/APH every
+``--val_every`` epochs; ``--profile_dir`` traces train steps 5-9. A
+``TwoStageDetector`` config trains its RoI head with ``train_two_stage`` on the first
+stage named by ``first_stage_cfg.pretrained`` (frozen where the config says
+``freeze``).
+
+Training is data-parallel by default, as tdal's (``tdal_torch.parallel.mesh.launch``):
+under ``torchrun --nproc_per_node N -m tdal_torch.tools.train ...`` each process is one
+rank; a plain launch spawns one rank per visible card; ``--no_data_parallel`` trains on
+one card, and ``--device cpu`` without a launcher is one rank. The batch is global: by
+default the config's ``samples_per_gpu`` times the number of ranks. The GT-aug sampler
+is not ported yet.
 """
 
 import argparse
@@ -17,10 +24,11 @@ from tdal_torch.data.waymo_schema import load_pickle
 from tdal_torch.models.builder import (
     build_assigner, build_detector, build_test_cfg, build_two_stage_engine, build_voxel_config,
 )
+from tdal_torch.parallel.mesh import is_main, launch
 from tdal_torch.pipeline.detector_run import train_detector
 from tdal_torch.pipeline.two_stage_run import load_pretrained_first, train_two_stage
 from tdal_torch.runtime.config import Config
-from tdal_torch.runtime.logging_utils import create_logger, fix_seed
+from tdal_torch.runtime.logging_utils import create_logger, fix_seed, quiet_logger
 from tdal_torch.runtime.schedules import adam_with_schedule, one_cycle
 from tdal_torch.runtime.train_state import TrainState, param_count
 from tdal_torch.tools._common import add_device, refuse
@@ -35,30 +43,37 @@ def parse_args():
     parser.add_argument("--total_epochs", type=int, default=None)
     parser.add_argument("--seed", type=int, default=None)
     parser.add_argument("--no_data_parallel", action="store_true",
-                        help="accepted for the tools' interface: the port trains on one device")
+                        help="train on one device instead of one rank per card")
     parser.add_argument("--resume_from", default=None, help="a checkpoint (.pt) to resume")
     parser.add_argument("--val_info_path", help="val infos for in-training eval "
                         "(overrides cfg.data.val.info_path)")
     parser.add_argument("--val_every", type=int, default=1, help="val every N epochs")
     parser.add_argument("--val_max_frames", type=int, default=None)
     parser.add_argument("--no_val", action="store_true", help="disable in-training val")
-    parser.add_argument("--profile_dir", default=None)
+    parser.add_argument("--profile_dir", default=None,
+                        help="write a torch.profiler trace of train steps 5-9 there")
     add_device(parser)
     return parser.parse_args()
 
 
 def main():
     args = parse_args()
-    if args.profile_dir:
-        refuse("--profile_dir")
+    launch(train, (args,), args.device, data_parallel=not args.no_data_parallel)
+
+
+def train(mesh, args):
+    """One rank's training (``mesh`` None: the only process)."""
+    device = args.device if mesh is None else mesh.device
     cfg = Config.fromfile(args.config)
     pre = cfg.get("train_preprocessor", {})
     if (pre.get("db_sampler") or {}).get("enable", False):
         refuse("the GT-aug database sampler")
     work_dir = Path(args.work_dir or cfg.get("work_dir", "./work_dirs/train"))
     work_dir.mkdir(parents=True, exist_ok=True)
-    logger = create_logger(work_dir / "train.log")
+    logger = create_logger(work_dir / "train.log") if is_main(mesh) else quiet_logger()
     seed = fix_seed(args.seed if args.seed is not None else 0)
+    if mesh is not None:
+        logger.info(f"data-parallel over {mesh.world} ranks ({mesh.backend})")
 
     voxel_cfg = build_voxel_config(cfg.voxel_generator, train=True)
     two_stage = cfg.model["type"] == "TwoStageDetector"
@@ -67,11 +82,11 @@ def main():
         first = build_detector(base_model_cfg, voxel_cfg, device="cpu", seed=seed)
         model = build_two_stage_engine(cfg.model, voxel_cfg,
                                        build_test_cfg(cfg.test_cfg, first, voxel_cfg),
-                                       device=args.device, seed=seed)
+                                       device=device, seed=seed)
         detector = model.first
     else:
         base_model_cfg = cfg.model
-        model = detector = build_detector(cfg.model, voxel_cfg, device=args.device, seed=seed)
+        model = detector = build_detector(cfg.model, voxel_cfg, device=device, seed=seed)
     test_cfg = build_test_cfg(cfg.test_cfg, detector, voxel_cfg)
     assigner = build_assigner(cfg.train_cfg["assigner"], detector)
     data_train = cfg.data["train"]
@@ -93,7 +108,8 @@ def main():
             max_points=data_train.get("max_points", 200000))
         logger.info(f"{len(val_ds)} val frames (every {args.val_every} epochs)")
 
-    batch_size = args.batch_size or cfg.data.get("samples_per_gpu", 4)
+    world = 1 if mesh is None else mesh.world
+    batch_size = args.batch_size or cfg.data.get("samples_per_gpu", 4) * world
     total_epochs = args.total_epochs or cfg.total_epochs
     total_steps = max(1, len(train_ds) // batch_size) * total_epochs
     lr, mom = one_cycle(cfg.lr_config["lr_max"], total_steps,
@@ -111,13 +127,15 @@ def main():
         state.load(args.resume_from)
         logger.info(f"resumed from {args.resume_from} at step {state.step}")
     if two_stage:
-        train_two_stage(state, train_ds, total_epochs, batch_size, logger, work_dir, seed=seed)
+        train_two_stage(state, train_ds, total_epochs, batch_size, logger, work_dir, seed=seed,
+                        mesh=mesh)
     else:
         head = base_model_cfg["bbox_head"]
         train_detector(state, train_ds, head.get("code_weights", [1.0] * 8), total_epochs,
                        batch_size, logger, work_dir, weight=head.get("weight", 2.0),
                        seed=seed, val_ds=val_ds, test_cfg=test_cfg, val_every=args.val_every,
-                       val_max_frames=args.val_max_frames)
+                       val_max_frames=args.val_max_frames, mesh=mesh,
+                       profile_dir=args.profile_dir)
     logger.info("Done.")
 
 

@@ -198,3 +198,53 @@ def test_detector_clis_fit_and_predict(tmp_path):
     for d in pred.values():
         assert d["box3d_lidar"].shape[1] == 9 and np.isfinite(d["box3d_lidar"]).all()
     assert len(load_pickle(work / "test" / "det_annos.pkl")) == 4
+
+
+def test_static_train_cli_trains_data_parallel_under_torchrun(segment, tmp_path):
+    """``static_train --data_parallel`` on two gloo ranks (``torchrun``): the same best
+    checkpoint choice as one process, rank 0 alone writing, and the same epoch-1 train
+    metrics (one step on the same weights, sets and draws). The seg terms within 1e-5
+    relative (its BatchNorms normalise over 512 points); the box terms within 1e-2: the
+    box head's (B, C) BatchNorms normalise over the batch's 2 sets with E[x^2] - E[x]^2,
+    which turns the sums' float reassociation into 1e-3 relative here."""
+    from test_torch_parallel import torchrun
+
+    val = segment / "torch" / "val"
+    if not (val / "trackStatic.pkl").exists():  # this file's first test writes them
+        _stages_2_to_4(_run_port, segment, "torch")
+    args = ["--track", val / "trackStatic.pkl", "--infos", segment / "infos.pkl",
+            "--model_type", "one_box_est", "--n_epoch", 2, "--batch_size", 2, "--npoints", 256,
+            "--n_object_points", 64, *CPU]
+    torchrun("tdal_torch.tools.static_train", [*args, "--work_dir", tmp_path / "dp",
+                                               "--data_parallel"])
+    _run_port("static_train", [*args, "--work_dir", tmp_path / "single"])
+    rows = {}
+    for side in ("dp", "single"):
+        model_dir = tmp_path / side / "model" / "one_box_est"
+        assert json.loads((model_dir / "best.json").read_text()) == \
+            {"epoch": 2, "eval_iou3d_acc": 0.0, "step": 2}
+        rows[side] = [json.loads(r) for r in
+                      (model_dir / "logs" / "metrics.jsonl").read_text().splitlines()]
+    assert [r["mode"] for r in rows["dp"]] == ["train", "val"] * 2  # written once
+    for k, v in rows["single"][0].items():
+        rel = 1e-5 if k in ("mask_loss", "seg_acc", "step") else 1e-2
+        assert rows["dp"][0][k] == pytest.approx(v, rel=rel, abs=1e-6), k
+
+
+def test_detector_clis_write_profiler_traces(tmp_path):
+    """``train --profile_dir`` and ``dist_test --profile_dir`` on the CPU each write a
+    Chrome trace of their step window (tdal's profiler hooks, through torch.profiler)."""
+    infos, _ = make_synthetic_dataset(tmp_path / "data", n_scenes=1, n_frames=4, seed=3,
+                                      n_static=2, n_dynamic=1, points_per_object=64,
+                                      n_background=256)
+    info_path = tmp_path / "data" / "infos.pkl"
+    cfg = ROOT / "configs" / "synthetic" / "pp_tiny.py"
+    work, prof = tmp_path / "det", tmp_path / "prof"
+    _run_port("train", [cfg, "--work_dir", work, "--info_path", info_path, "--total_epochs", 1,
+                        "--batch_size", 2, "--no_val", "--profile_dir", prof, *CPU])
+    _run_port("dist_test", [cfg, "--work_dir", work / "test", "--checkpoint", work / "checkpoints",
+                            "--info_path", info_path, "--batch_size", 2, "--profile_dir", prof,
+                            *CPU])
+    for name in ("train", "inference"):
+        trace = json.loads((prof / f"{name}.trace.json").read_text())
+        assert trace["traceEvents"], name

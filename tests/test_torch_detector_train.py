@@ -467,6 +467,27 @@ def test_phase6_comparison_fails_both_controls(tmp_path):
         assert reading["grad_err_over_tol"] > 10, name
 
 
+def test_phase10_data_parallel_check_fails_both_controls(tmp_path, monkeypatch):
+    """``chip_smoke.py`` phase 10's check of (a) and (c), run on the CPU (two gloo ranks
+    against one process) on a narrow PointPillars and 256-point labeler sets: the sound
+    steps pass, and both controls of each miss the gradient tolerance by more than 10x
+    (the script raises when one passes)."""
+    import chip_smoke
+    from tdal_torch.parallel.controls import CONTROLS
+
+    cfg, _, model, _ = _narrow_config_path(tmp_path)
+    batch = _batch(4, seed=7)  # boxes inside the narrow grid: the heads have positives
+    monkeypatch.setattr(chip_smoke, "NPOINTS_STATIC", 256)
+    monkeypatch.setattr(chip_smoke, "log", print)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # each spawned rank
+    out = chip_smoke.check_dp_steps(model, batch, cfg, 4, torch.device("cpu"), ["cpu"] * 2,
+                                    "gloo", tmp_path, labeler=chip_smoke.dp_labeler_inputs())
+    assert out["readings"]["sound"]["grad_err_over_tol"] <= 1
+    for name in CONTROLS:
+        assert out["readings"][name]["grad_err_over_tol"] > 10, name
+        assert out["labeler"]["readings"][name]["grad_err_over_tol"] > 10, name
+
+
 def test_build_detector_refuses_the_cpu_unless_asked():
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour without a CUDA card")

@@ -513,3 +513,82 @@ def test_voxelnet_train_step_on_card_runs_the_kernels(cuda):
                 "conv3x3_dgrad_act": chained, "conv3x3_wgrad": sites}
         losses.append(float(total.detach()))
     assert np.isfinite(losses[0]) and losses[0] == pytest.approx(losses[1], rel=1e-4)
+
+
+def _fused_chain_step(mesh, a, b, x, w) -> dict:
+    """One forward and backward of the chain ``b(a(x))`` (a emits its raw output and its
+    BN + ReLU as ``pre``) on this rank's rows, loss ``partial_mean(out * w)``: the
+    gradients (summed over the mesh) and the running statistics, on the CPU."""
+    from tdal_torch.parallel import mesh as pmesh
+
+    before = dict(cv.launches)
+    with pmesh.scope(mesh):
+        y, pre = a(pmesh.rank_rows(x), emit_raw=True)
+        out = b(y, pre=pre)
+        pmesh.partial_mean(out * pmesh.rank_rows(w)).backward()
+        if mesh is not None:
+            pmesh.all_reduce_grads([*a.parameters(), *b.parameters()], mesh)
+    torch.cuda.synchronize()
+    named = {**{f"a.{k}": v for k, v in a.state_dict().items()},
+             **{f"b.{k}": v for k, v in b.state_dict().items()}}
+    grads = {**{f"a.{n}": p.grad for n, p in a.named_parameters()},
+             **{f"b.{n}": p.grad for n, p in b.named_parameters()}}
+    return dict(grads={k: g.double().cpu() for k, g in grads.items()},
+                running={k: v.double().cpu() for k, v in named.items() if "running" in k},
+                launches={k: cv.launches[k] - before[k] for k in before})
+
+
+def _chain_rank(mesh, inputs, out_dir):
+    """A spawned rank of ``test_fused_conv_bn_chain_data_parallel_on_card``."""
+    from pathlib import Path
+
+    a, b, x, w = (t.to(mesh.device) for t in torch.load(inputs, weights_only=False))
+    torch.save(_fused_chain_step(mesh, a.train(), b.train(), x, w),
+               Path(out_dir) / f"{mesh.rank}.pt")
+
+
+@pytest.mark.gpu
+def test_fused_conv_bn_chain_data_parallel_on_card(cuda, tmp_path):
+    """Two gloo ranks on one card (NCCL refuses two ranks on one device) run a chained
+    FusedConvBN pair on their halves of a batch of 4: K3's moments, all-reduced, give
+    the global BN statistics and the chained ``pre``, and their cotangents, all-reduced
+    in the backward, reach K7 and K5. The gradients (summed) and the running statistics
+    must equal the single-process step's: gradients within max(8 x the change under a
+    permutation of the batch, 1e-5 of the leaf's largest value), statistics rtol 1e-5."""
+    import copy
+
+    from tdal_torch.models.layers import FusedConvBN
+    from tdal_torch.parallel import mesh as pmesh
+
+    g = torch.Generator().manual_seed(0)
+    a = FusedConvBN(16, 32, use_bias=True, momentum=0.1, eps=1e-5)
+    b = FusedConvBN(32, 24)
+    with torch.no_grad():
+        for p in (*a.parameters(), *b.parameters()):
+            noise = torch.randn(p.shape, generator=g)
+            p.copy_(noise * 0.1 if p.dim() == 4 else 1.0 + 0.5 * noise)  # weights; affines
+    x = torch.randn(4, 24, 20, 16, generator=g)
+    w = torch.randn(4, 24, 20, 24, generator=g)
+    torch.save((a, b, x, w), tmp_path / "inputs.pt")
+
+    def single(perm):
+        aa, bb = copy.deepcopy(a).to(cuda).train(), copy.deepcopy(b).to(cuda).train()
+        return _fused_chain_step(None, aa, bb, x[perm].to(cuda), w[perm].to(cuda))
+
+    want, permuted = single([0, 1, 2, 3]), single([2, 0, 3, 1])
+    pmesh.spawn(_chain_rank, (str(tmp_path / "inputs.pt"), str(tmp_path)),
+                devices=["cuda:0", "cuda:0"], backend="gloo")
+    ranks = [torch.load(tmp_path / f"{r}.pt", weights_only=False) for r in range(2)]
+    for got in ranks:
+        launches = got["launches"]
+        assert launches["conv3x3_fwd_stats"] == 2 and launches["conv3x3_dgrad_act"] == 1
+        for k, v in want["grads"].items():
+            floor = float((v - permuted["grads"][k]).abs().max())
+            tol = max(8 * floor, 1e-5 * float(v.abs().max()) + 1e-7)
+            err = float((got["grads"][k] - v).abs().max())
+            assert err <= tol, f"grad {k}: {err:.3e} > {tol:.3e}"
+        for k, v in want["running"].items():
+            assert torch.allclose(got["running"][k], v, rtol=1e-5,
+                                  atol=1e-6 * max(1.0, float(v.abs().max()))), k
+    for k, v in ranks[0]["grads"].items():
+        assert torch.equal(v, ranks[1]["grads"][k]), k
