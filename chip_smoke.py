@@ -47,15 +47,20 @@ nothing of JAX or of ``tdal``, and exits non-zero on any failure. Phases:
 6. PointPillars training end to end: ``configs/waymo/pp/waymo_centerpoint_pp_two_
    pfn_stride1_3x.py`` through the port's ``Config.fromfile``, ``build_detector``
    (fresh init from seed 0) and ``train_detector`` at batch 4 on a synthetic dataset
-   (8 frames, 150000 background points each, ``max_points`` 200000): a warm epoch
-   (2 steps), then 2 epochs (4 steps) with the launch counters set to 0 just before
-   and read just after. Every loss must be finite and every step must launch K3 and
+   (8 frames, 150000 background points each, ``max_points`` 200000): a snapshot epoch
+   (2 steps) under ``deterministic`` (cuDNN's deterministic algorithms, torch's
+   deterministic mode; the ops without a deterministic version are printed), whose end
+   is the weights and batch of the card-vs-CPU check below and of phase 10 (a), then
+   with the settings restored a warm epoch (2 steps) and 2 epochs (4 steps) with the
+   launch counters set to 0 just before and read just after. Every loss must be finite and every step must launch K3 and
    K5/K6 16 times (16 stride-1 3x3 convs), K7 12 times (the 12 that take their
    producer's BN + ReLU) and K4 4 times (the other 4). The step alone is timed, and
    one more step runs under ``torch.profiler``: device time by kernel name (top 10),
    the conv kernels' share of the step and the device's idle share.
-   Then one train step on the card (on the batch's first 2 frames: the CPU copy's six
-   steps at batch 4 took 406-527 s) is held against the same step on a CPU copy
+   Then one train step on the card from the snapshot (on its batch's first 2 frames: the
+   CPU copy's six steps at batch 4 took 406-527 s), under ``deterministic``, so that
+   the verdict is a function of the code and not of the run, is held against the same
+   step on a CPU copy
    (plain versions, no kernel): the loss, the BN running statistics, the gradients
    within 8x a noise floor measured on the CPU copy (the change under a permutation
    of the batch or under two rounding-level changes of the weights, each taken both
@@ -112,11 +117,11 @@ nothing of JAX or of ``tdal``, and exits non-zero on any failure. Phases:
    alone, the first stage unchanged, predict's frames/s, and one RoI head step against
    a CPU copy on the same RoIs, features, draws and dropout masks, with the unbiased
    running variance as a control that must fail;
-10. data parallelism (``tdal_torch.parallel.mesh``) with phase 6's weights. (a) One
+10. data parallelism (``tdal_torch.parallel.mesh``) with phase 6's snapshot. (a) One
    PointPillars train step of the Waymo PP config at a global batch of 4 on two gloo
    ranks sharing the card (NCCL refuses two ranks on one device), against the
-   single-process step on the card: the loss, every gradient, the parameters after the
-   update and the running statistics, held by phase 6's comparison with its noise floor
+   single-process step on the card, both under ``deterministic``: the loss, every
+   gradient, the parameters after the update and the running statistics, held by phase 6's comparison with its noise floor
    measured on the card (8x the change under a permutation of the batch and two
    mirrored pairs of rounding-level weight changes); each reading is printed as a share
    of its tolerance, both ranks must end with the same state, and two controls (per-rank
@@ -131,10 +136,23 @@ nothing of JAX or of ``tdal``, and exits non-zero on any failure. Phases:
    cards, (a)'s step over NCCL across them, its ``train_detector`` frames/s (a smoke
    figure: 2 frames a card, checkpoint writes included) and the scaling reading at a
    global batch of 8 against (b)'s; otherwise the line ``one card: (d) not run``;
-11. one line ``{"kernels": [...]}`` (K1, K2, K3, K4, K5/K6, K7, and K4 again as the
-   benchmark prototype's function), each kernel's ``launches`` from phases 8, 9 and
-   10(b);
-12. the last line ``{"ok": true, "device": {...}}``. The seconds each phase took are
+11. the port's data preparation and GT-aug training on the Waymo PP config: a training
+   segment in the decoded per-frame layout (2 scenes of 8 frames, 150000 background
+   points, 6 static and 2 dynamic vehicles a scene, 256 points each) through
+   ``python -m tdal_torch.tools.create_data waymo_data_prep`` in a subprocess (its
+   infos, dbinfos and ``.bin`` crops checked), then ``train_detector`` at batch 4 from
+   phase 6's snapshot with the config's ``db_sampler`` enabled on that database (the
+   training set from ``tdal_torch.tools.train.build_train_dataset``, the CLI's own): a
+   warm epoch, then a timed epoch of 4 steps with the conv launch counters from 0. It
+   prints the pasted boxes and points a frame, the host seconds of a batch of 4 with the
+   sampler and without, training frames/s, peak memory, the losses and the launches a
+   step, and fails on fewer than 1 pasted box a frame on average, a pasted box that
+   collides with another box of its frame, a non-finite loss, or launches other than
+   K3 16, K4 4, K7 12 and K5/K6 16 a step;
+12. one line ``{"kernels": [...]}`` (K1, K2, K3, K4, K5/K6, K7, and K4 again as the
+   benchmark prototype's function), each kernel's ``launches`` from phases 8, 9, 10(b)
+   and 11;
+13. the last line ``{"ok": true, "device": {...}}``. The seconds each phase took are
    printed before the ``kernels`` line.
 
 ``--noise-probe STATES`` builds and then runs only ``noise_probe``: on the card, how
@@ -142,7 +160,9 @@ often phase 6's comparison would fail a step that differs by rounding alone.
 ``--offboard-only`` builds and then runs only phase 8, from a fresh detector (seed 0)
 in place of phase 6's weights, and prints no ``kernels`` line; ``--voxelnet-only``
 builds and then runs only phase 9; ``--dp-only`` builds and then runs only phase 10,
-from a fresh detector.
+from phase 6's snapshot (its first epoch alone); ``--pp-only`` builds and then runs
+only phase 6;
+``--data-prep-only`` builds and then runs only phase 11, from a fresh detector.
 """
 
 from __future__ import annotations
@@ -161,6 +181,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -858,6 +879,9 @@ PP_CONFIG = Path("configs/waymo/pp/waymo_centerpoint_pp_two_pfn_stride1_3x.py")
 PP_DATA = dict(n_scenes=1, n_frames=8, seed=0, n_static=10, n_dynamic=10,
                points_per_object=256, n_background=150000)
 PP_BATCH, PP_WARM_EPOCHS, PP_TIMED_EPOCHS = 4, 1, 2
+# the epoch before the warm one, run under ``deterministic``: its end is the weights that
+# the card-vs-CPU step check and phase 10 (a) start from
+PP_SNAPSHOT_EPOCHS = 1
 # the card-vs-CPU step check's batch: the first two frames of the timed batch (its six
 # CPU steps at batch 4 took 406-527 s of the script's 1200)
 PP_CHECK_BATCH = 2
@@ -877,6 +901,31 @@ GRAD_NOISE_MARGIN = 8  # gradients within 8x the measured noise floor
 # relative change of every weight for the noise floor: about the f32 rounding of a
 # dot product over 9 * C = 576..3456 terms in another order (sqrt(n) * 2^-24)
 ULP_PERTURBATION = 2.0**-19
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Within the block: cuDNN's deterministic algorithms (no benchmark search) and
+    torch's deterministic mode, warning where an op has no deterministic version. Yields
+    a list that, at the block's end, holds the first line of each such warning (cuBLAS's
+    note on ``CUBLAS_WORKSPACE_CONFIG`` left out: its GEMMs repeat their bits on one
+    stream). The settings before the block come back after it."""
+    before = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+              torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    named = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield named
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = before[:2]
+            torch.use_deterministic_algorithms(before[2], warn_only=before[3])
+            named.extend(sorted({str(w.message).splitlines()[0] for w in caught
+                                 if "determinis" in str(w.message)
+                                 and "CUBLAS_WORKSPACE_CONFIG" not in str(w.message)}))
 
 
 def step_with_grads(model, batch, device, cfg, n_steps_total, perturb=0.0, perturb_seed=1,
@@ -1181,6 +1230,35 @@ def pp_training(root: Path):
     return cfg, model, TrainState(model, opt), ds, total_steps
 
 
+def train_epochs(state, ds, cfg, work: Path, epochs: int):
+    """``epochs`` epochs of ``train_detector`` at ``PP_BATCH`` logging every step into
+    ``work``, synchronised: (seconds, the metric rows)."""
+    from tdal_torch.pipeline.detector_run import train_detector
+
+    head = cfg.model["bbox_head"]
+    t0 = time.perf_counter()
+    train_detector(state, ds, head["code_weights"], n_epoch=epochs, batch_size=PP_BATCH,
+                   logger=logging.getLogger("chip_smoke"), work_dir=work,
+                   weight=head["weight"], log_every=1)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    return elapsed, [json.loads(line) for line in
+                     (work / "logs" / "metrics.jsonl").read_text().splitlines()]
+
+
+def pp_snapshot(root: Path):
+    """Phase 6's snapshot: the Waymo PP detector of ``pp_training`` after
+    ``PP_SNAPSHOT_EPOCHS`` under ``deterministic``, whose end is the same in every run.
+    Returns (cfg, model, state, dataset, total steps, seconds, metric rows, the ops
+    without a deterministic version)."""
+    cfg, model, state, ds, total_steps = pp_training(root)
+    with deterministic() as named:
+        snap_s, rows = train_epochs(state, ds, cfg, root / "snapshot", PP_SNAPSHOT_EPOCHS)
+    log(f"  snapshot epoch under deterministic algorithms in {snap_s:.1f} s; ops "
+        f"without a deterministic version: {named or 'none'}")
+    return cfg, model, state, ds, total_steps, snap_s, rows, named
+
+
 CONV_KERNEL_NAMES = ("conv3x3_kernel", "wgrad_kernel", "stats_reduce_kernel",
                      "wgrad_reduce_kernel")
 
@@ -1237,25 +1315,18 @@ def phase_train(device) -> dict:
     from tdal_torch.data.detection import collate_detection
     from tdal_torch.models.builder import build_detector, build_voxel_config
     from tdal_torch.ops import conv3x3 as cv
-    from tdal_torch.pipeline.detector_run import train_detector
 
-    logger = logging.getLogger("chip_smoke")
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
-        cfg, model, state, ds, total_steps = pp_training(root)
+        # the check's weights and batch, reached through deterministic algorithms only:
+        # the check's verdict is then a function of the code, not of the run
+        cfg, model, state, ds, total_steps, _, snap_rows, _ = pp_snapshot(root)
         head = cfg.model["bbox_head"]
+        snapshot = copy.deepcopy(model).cpu()
+        batch = collate_detection([ds[i] for i in range(PP_BATCH)])
 
         def run(tag, epochs):
-            work = root / tag
-            t0 = time.perf_counter()
-            train_detector(state, ds, head["code_weights"], n_epoch=epochs,
-                           batch_size=PP_BATCH, logger=logger, work_dir=work,
-                           weight=head["weight"], log_every=1)
-            torch.cuda.synchronize()
-            elapsed = time.perf_counter() - t0
-            rows = [json.loads(line) for line in
-                    (work / "logs" / "metrics.jsonl").read_text().splitlines()]
-            return elapsed, rows
+            return train_epochs(state, ds, cfg, root / tag, epochs)
 
         warm_s, warm_rows = run("warm", PP_WARM_EPOCHS)
         torch.cuda.reset_peak_memory_stats()
@@ -1264,7 +1335,7 @@ def phase_train(device) -> dict:
         timed_s, rows = run("timed", PP_TIMED_EPOCHS)
         launches = dict(cv.launches)
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        losses = [r["loss"] for r in warm_rows + rows]
+        losses = [r["loss"] for r in snap_rows + warm_rows + rows]
         log(f"  losses {losses}")
         log(f"  kernel launches in the {PP_TIMED} timed steps: {launches}")
         if not all(math.isfinite(v) for v in losses):
@@ -1280,7 +1351,6 @@ def phase_train(device) -> dict:
         # the step alone on one batch, synchronised (host data excluded)
         from tdal_torch.pipeline.detector_engine import make_detector_steps
 
-        batch = collate_detection([ds[i] for i in range(PP_BATCH)])
         step = make_detector_steps(model, head["code_weights"], head["weight"])
 
         step_s = []
@@ -1305,16 +1375,20 @@ def phase_train(device) -> dict:
             f"{', '.join(f'{1e3 * v:.1f}' for v in step_s)}); peak memory "
             f"{peak_gib:.2f} GiB; warm-up {warm_s:.1f} s")
         voxel_cfg = build_voxel_config(cfg.voxel_generator, train=True)
-        model_bf16 = build_detector(dict(cfg.model, dtype="bfloat16"), voxel_cfg, seed=0)
-        model_bf16.load_state_dict(model.state_dict())
-        check = check_step_against_cpu(model, model_bf16, first_frames(batch, PP_CHECK_BATCH),
-                                       device, cfg, total_steps)
+        model_bf16 = build_detector(dict(cfg.model, dtype="bfloat16"), voxel_cfg, "cpu", 0)
+        model_bf16.load_state_dict(snapshot.state_dict())
+        with deterministic() as named:
+            check = check_step_against_cpu(snapshot, model_bf16,
+                                           first_frames(batch, PP_CHECK_BATCH), device, cfg,
+                                           total_steps)
+        log(f"  the check ran under deterministic algorithms; ops without a deterministic "
+            f"version: {named or 'none'}")
         del model_bf16
     return dict(launches=launches, losses=losses, step_ms=step_ms, step_s=step_s,
                 profiled_step=profiled,
                 timed_s=timed_s, frames_per_s=frames_per_s, checkpoint_s=ckpt_s,
                 frames_per_s_without_checkpoints=frames_per_s_no_ckpt, peak_gib=peak_gib,
-                **check), cfg, model
+                **check), cfg, model, snapshot.state_dict()
 
 
 # ---------------------------------------------------------------------------
@@ -2759,10 +2833,11 @@ def _dp_rank(mesh, job_file, out_dir):
     job = torch.load(job_file, weights_only=False)
     cfg = Config(job["cfg"])
     steps = {}
-    for name in (None, *job["controls"]):
-        with control(name):
-            steps[name] = step_with_grads(job["model"], job["batch"], mesh.device, cfg,
-                                          job["n_steps_total"], mesh=mesh)
+    with deterministic():
+        for name in (None, *job["controls"]):
+            with control(name):
+                steps[name] = step_with_grads(job["model"], job["batch"], mesh.device, cfg,
+                                              job["n_steps_total"], mesh=mesh)
     out = {"steps": steps} if mesh.rank == 0 else {"state": steps[None][2]}
     if job["labeler"] is not None:
         out["labeler"] = labeler_dp_check(mesh, *job["labeler"])
@@ -2796,8 +2871,9 @@ def check_dp_steps(model, batch, cfg, n_steps_total, device, devices, backend, r
 
     controls = CONTROLS if controls is None else controls
     t0 = time.perf_counter()
-    single = step_with_grads(model, batch, device, cfg, n_steps_total)
-    noise = noise_steps_of(model, batch, device, cfg, n_steps_total)
+    with deterministic():  # as the ranks' steps
+        single = step_with_grads(model, batch, device, cfg, n_steps_total)
+        noise = noise_steps_of(model, batch, device, cfg, n_steps_total)
     noise_grads, noise_states = [n[1] for n in noise], [n[2] for n in noise]
     del noise
     torch.cuda.empty_cache()
@@ -2949,6 +3025,165 @@ def phase_data_parallel(device, pp_state, phase6_fps=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the port's data preparation and GT-aug training on the Waymo PP config
+# ---------------------------------------------------------------------------
+
+# a training segment in the decoded per-frame layout: 2 scenes of 8 frames, 6 static and
+# 2 dynamic vehicles a scene (the config samples up to VEHICLE=15 a frame, so each frame
+# has a deficit to fill; the other scene's objects give candidates clear of this one's)
+PREP_SCENES = dict(n_frames=8, seed=0, n_static=6, n_dynamic=2, points_per_object=256,
+                   n_background=150000)
+PREP_N_SCENES = 2
+PREP_TIMED_EPOCHS = 1
+PREP_FRAMES = PREP_N_SCENES * PREP_SCENES["n_frames"]
+PREP_TIMED = PREP_TIMED_EPOCHS * PREP_FRAMES // PP_BATCH  # steps
+PREP_INFOS = "infos_train_01sweeps_filter_zero_gt.pkl"
+# tdal's name for the database of one sweep ({nsweeps}, not the config's {:02d})
+PREP_DBINFOS = "dbinfos_train_1sweeps_withvelo.pkl"
+
+
+def pasted_collisions(frame_boxes, pasted) -> int:
+    """Pasted boxes of a frame that collide in BEV with any other box of the frame (its
+    own boxes, then the pasted ones)."""
+    from tdal_torch.data.gt_augment import box_collision_test
+
+    n, k = len(pasted), len(frame_boxes)
+    hit = box_collision_test(pasted, np.concatenate([frame_boxes, pasted]))
+    hit[np.arange(n), k + np.arange(n)] = False  # a box against itself
+    return int(hit.any(axis=1).sum())
+
+
+def phase_data_prep(device, pp_state=None) -> dict:
+    """Phase 11: a Waymo-layout training segment through the port's ``create_data
+    waymo_data_prep`` (a subprocess, the CLI's entry point), then ``train_detector`` of
+    the Waymo PP config at full width with its GT-aug sampler enabled on that database
+    (the training set built by ``tdal_torch.tools.train.build_train_dataset``, the CLI's
+    own function), from ``pp_state`` or fresh from seed 0: a warm epoch, then
+    ``PREP_TIMED_EPOCHS`` timed with the conv launch counters from 0. Every pasted box
+    is recorded with its frame's boxes."""
+    from tdal_torch.data.detection import collate_detection
+    from tdal_torch.data.synthetic import SyntheticScene
+    from tdal_torch.data.waymo_schema import load_pickle
+    from tdal_torch.models.builder import build_assigner, build_detector, build_voxel_config
+    from tdal_torch.ops import conv3x3 as cv
+    from tdal_torch.runtime.config import Config
+    from tdal_torch.runtime.schedules import adam_with_schedule, one_cycle
+    from tdal_torch.runtime.train_state import TrainState
+    from tdal_torch.tools.train import build_train_dataset
+
+    logger = logging.getLogger("chip_smoke")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        for i in range(PREP_N_SCENES):
+            SyntheticScene(i, **PREP_SCENES).write(root, split="train")
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "tdal_torch.tools.create_data",
+                              "waymo_data_prep", "--root_path", str(root)],
+                             cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                             timeout=600)
+        prep_s = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"create_data waymo_data_prep exited with {run.returncode}:\n"
+                                 f"{run.stdout[-2000:]}{run.stderr[-4000:]}")
+        infos = load_pickle(root / PREP_INFOS)
+        dbinfos = load_pickle(root / PREP_DBINFOS)
+        crops = {str(k): len(v) for k, v in dbinfos.items()}
+        bins = {d.name: len(list(d.glob("*.bin")))
+                for d in (root / "gt_database_1sweeps_withvelo").iterdir()}
+        log(f"  {PREP_N_SCENES} scenes of {PREP_SCENES['n_frames']} frames written in "
+            f"{write_s:.1f} s; create_data waymo_data_prep (a subprocess) {prep_s:.1f} s: "
+            f"{len(infos)} infos, crops by class {crops}, .bin files {bins}")
+        if len(infos) != PREP_FRAMES or not crops or crops != bins:
+            raise AssertionError(f"create_data: {len(infos)} infos ({PREP_FRAMES} expected), "
+                                 f"dbinfos {crops}, .bin files {bins}")
+
+        cfg = Config.fromfile(PP_CONFIG)
+        db = cfg.train_preprocessor.db_sampler
+        db.enable, db.db_info_path = True, str(root / PREP_DBINFOS)
+        voxel_cfg = build_voxel_config(cfg.voxel_generator, train=True)
+        model = build_detector(cfg.model, voxel_cfg, seed=0)
+        if pp_state is not None:
+            model.load_state_dict(pp_state)
+        assigner = build_assigner(cfg.train_cfg["assigner"], model)
+        ds = build_train_dataset(cfg, infos, assigner, voxel_cfg, seed=0, logger=logger)
+        if ds.db_sampler is None:
+            raise AssertionError("the GT-aug sampler is off: the phase would train without it")
+        sampler, draws = ds.db_sampler, []
+        sample_all = sampler.sample_all
+
+        def recorded(gt_boxes, gt_names, rng):
+            out = sample_all(gt_boxes, gt_names, rng)
+            draws.append((gt_boxes.copy(), None if out is None else out["gt_boxes"],
+                          0 if out is None else len(out["points"])))
+            return out
+
+        sampler.sample_all = recorded
+        total_steps = PREP_FRAMES // PP_BATCH * cfg.total_epochs
+        lr, mom = one_cycle(cfg.lr_config["lr_max"], total_steps, tuple(cfg.lr_config["moms"]),
+                            cfg.lr_config["div_factor"], cfg.lr_config["pct_start"])
+        state = TrainState(model, adam_with_schedule(model.parameters(), lr, cfg.optimizer["wd"],
+                                                     cfg.grad_clip["max_norm"], mom))
+        warm_s, warm_rows = train_epochs(state, ds, cfg, root / "warm", 1)
+        torch.cuda.reset_peak_memory_stats()
+        for k in cv.launches:
+            cv.launches[k] = 0
+        timed_s, rows = train_epochs(state, ds, cfg, root / "timed", PREP_TIMED_EPOCHS)
+        launches = dict(cv.launches)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        sampler.sample_all = sample_all
+
+        # the host's share: one batch of 4 built with the sampler and without it
+        host = {}
+        for tag, db_sampler in (("with the sampler", sampler), ("without", None)):
+            ds.db_sampler, times = db_sampler, []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                collate_detection([ds[i] for i in range(PP_BATCH)])
+                times.append(time.perf_counter() - t0)
+            host[tag] = statistics.median(times)
+        ds.db_sampler = sampler
+
+    boxes = [0 if b is None else len(b) for _, b, _ in draws]
+    points = [n for _, _, n in draws]
+    collisions = sum(pasted_collisions(f, b) for f, b, _ in draws if b is not None)
+    losses = [r["loss"] for r in warm_rows + rows]
+    per_step = {k: v / PREP_TIMED for k, v in launches.items()}
+    frames_per_s = PREP_TIMED * PP_BATCH / timed_s
+    log(f"  GT-aug over {len(draws)} training frames: pasted boxes a frame mean "
+        f"{np.mean(boxes):.3f}, min {min(boxes)}, max {max(boxes)}; pasted points a frame "
+        f"mean {np.mean(points):.1f}, min {min(points)}, max {max(points)}; {collisions} "
+        f"pasted boxes collide with another box of their frame")
+    log(f"  host: a batch of {PP_BATCH} built in {host['with the sampler']:.3f} s with the "
+        f"sampler, {host['without']:.3f} s without (median of 3; the prefetch thread builds "
+        f"it behind a step)")
+    log(f"  train_detector with GT-aug: {PREP_TIMED} timed steps in {timed_s:.3f} s "
+        f"({frames_per_s:.2f} training frames/s, a checkpoint included), warm epoch "
+        f"{warm_s:.1f} s; peak memory {peak_gib:.2f} GiB; losses {losses}; launches a step "
+        f"{per_step}")
+    if not np.mean(boxes) >= 1:
+        raise AssertionError(f"GT-aug pasted {np.mean(boxes):.3f} boxes a frame, fewer than 1")
+    if collisions:
+        raise AssertionError(f"{collisions} pasted boxes collide with another box of their frame")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"a non-finite loss: {losses}")
+    if len(rows) != PREP_TIMED:
+        raise AssertionError(f"{len(rows)} timed steps logged, expected {PREP_TIMED}")
+    for name, n in launches.items():
+        if n != PREP_TIMED * PP_LAUNCHES[name]:
+            raise AssertionError(f"{name}: {n} launches in {PREP_TIMED} steps, expected "
+                                 f"{PP_LAUNCHES[name]} per step")
+    return dict(prep_s=prep_s, write_s=write_s, infos=len(infos), crops=crops,
+                pasted_boxes=dict(mean=float(np.mean(boxes)), min=min(boxes), max=max(boxes)),
+                pasted_points=dict(mean=float(np.mean(points)), min=min(points),
+                                   max=max(points)),
+                collisions=collisions, host_batch_s=host, timed_s=timed_s,
+                frames_per_s=frames_per_s, warm_s=warm_s, peak_gib=peak_gib, losses=losses,
+                launches=launches)
+
+
 # a rounding-level relative change of every weight: the probe's stand-in for the
 # card-vs-CPU rounding difference, which costs a minute and a half of CPU to measure
 PROBE_ROUNDING = 2.0**-22
@@ -3021,7 +3256,11 @@ def main() -> int:
     parser.add_argument("--voxelnet-only", action="store_true",
                         help="build, then run only phase 9")
     parser.add_argument("--dp-only", action="store_true",
-                        help="build, then run only phase 10 from a fresh detector")
+                        help="build, then run only phase 10 from phase 6's snapshot")
+    parser.add_argument("--pp-only", action="store_true",
+                        help="build, then run only phase 6")
+    parser.add_argument("--data-prep-only", action="store_true",
+                        help="build, then run only phase 11 from a fresh detector")
     parser.add_argument("--library-times", action="store_true",
                         help="only time phase 5's cuDNN calls in benchmark mode and print "
                              "them as one JSON line (phase 5 runs this in a child process)")
@@ -3101,14 +3340,28 @@ def main() -> int:
         log("phase 9 VoxelNet and the two-stage detector (alone)")
         print(json.dumps(phase_voxelnet(device), default=str))
         return 0
+    if args.pp_only:
+        log("phase 6 PointPillars training on the Waymo config (alone)")
+        t0 = time.perf_counter()
+        train = phase_train(device)[0]
+        log(f"  phase 6 seconds: {time.perf_counter() - t0:.1f}")
+        print(json.dumps({k: v for k, v in train.items() if k != "profiled_step"},
+                         default=str))
+        return 0
+    if args.data_prep_only:
+        log("phase 11 data preparation and GT-aug training (alone, from a fresh detector)")
+        t0 = time.perf_counter()
+        prep = phase_data_prep(device)
+        log(f"  phase 11 seconds: {time.perf_counter() - t0:.1f}")
+        print(json.dumps(prep, default=str))
+        return 0
     if args.dp_only:
-        from tdal_torch.models.builder import build_detector, build_voxel_config
-        from tdal_torch.runtime.config import Config
-
-        cfg = Config.fromfile(PP_CONFIG)
-        fresh = build_detector(cfg.model, build_voxel_config(cfg.voxel_generator), "cpu", 0)
-        log("phase 10 data parallelism (alone, from a fresh detector)")
-        print(json.dumps(phase_data_parallel(device, fresh.state_dict()), default=str))
+        log("phase 10 data parallelism (alone, from phase 6's snapshot)")
+        with tempfile.TemporaryDirectory() as tmp:
+            model = pp_snapshot(Path(tmp))[1]
+            snapshot = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        del model
+        print(json.dumps(phase_data_parallel(device, snapshot), default=str))
         return 0
 
     lap(2)
@@ -3130,8 +3383,7 @@ def main() -> int:
     log(f"  launches in phase 5 (checks and timing, not counted below): {dict(cv.launches)}")
 
     log("phase 6 PointPillars training on the Waymo config")
-    train, pp_cfg, pp_model = phase_train(device)
-    pp_state = {k: v.detach().cpu().clone() for k, v in pp_model.state_dict().items()}
+    train, pp_cfg, pp_model, pp_state = phase_train(device)
     lap(6)
 
     log("phase 7 PointPillars inference on the Waymo config")
@@ -3152,6 +3404,10 @@ def main() -> int:
     log("phase 10 data parallelism: two ranks on one card, one NCCL rank, two cards")
     dp = phase_data_parallel(device, pp_state, train["frames_per_s"])
     lap(10)
+
+    log("phase 11 the port's data preparation and GT-aug training on the Waymo PP config")
+    prep = phase_data_prep(device, pp_state)
+    lap(11)
 
     entries = []
     for name, by_case in kres.items():
@@ -3187,13 +3443,14 @@ def main() -> int:
             name=name, route="cuda", source=CONV_SOURCE,
             replaces=PROTO["replaces"] if proto else CONV_REPLACES[name],
             launches=(offboard["conv_launches"][key] + voxelnet["train"]["launches"][key]
-                      + dp["b"]["launches"][key]),
+                      + dp["b"]["launches"][key] + prep["launches"][key]),
             launches_by_path={"phase 6 timed steps": train["launches"][key],
                               "phase 8 detector rounds": offboard["conv_launches"][key],
                               "phase 9 VoxelNet timed steps":
                                   voxelnet["train"]["launches"][key],
                               "phase 10 (b) timed steps, one NCCL rank":
-                                  dp["b"]["launches"][key]},
+                                  dp["b"]["launches"][key],
+                              "phase 11 GT-aug timed steps": prep["launches"][key]},
             max_abs_err=main_case["max_abs_err"], ms=main_case["ms"],
             plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
             bound_by=main_case["bound_by"], library_ms=main_case["library_ms"],
@@ -3215,6 +3472,7 @@ def main() -> int:
     log(f"  offboard summary: {json.dumps(offboard, default=str)}")
     log(f"  VoxelNet summary: {json.dumps(voxelnet, default=str)}")
     log(f"  data-parallel summary: {json.dumps(dp, default=str)}")
+    log(f"  data preparation summary: {json.dumps(prep, default=str)}")
     log(f"  seconds by phase (phase 2 from the start): {json.dumps(seconds)}")
     log(f"card: {kind} | {smi}")
     print(json.dumps({"kernels": entries}))

@@ -7,8 +7,9 @@ global rotation / scaling / translation, preprocess.py:771-963), class and range
 filtering, point shuffling, and CenterNet targets (``tdal_torch.core.targets``).
 Frames come out as fixed-shape NaN-padded point clouds; voxelization runs on the
 device inside the detector. Points are read from a frame's ``.tdc`` cache
-(``tdal_torch.data.frame_cache``) where one was built, else from its pickle. The
-GT-aug database sampler is not ported yet.
+(``tdal_torch.data.frame_cache``) where one was built, else from its pickle. With a
+``db_sampler`` (``tdal_torch.data.gt_augment.DBSampler``) training frames get GT-aug:
+sampled database objects, boxes and points, pasted before the global augmentations.
 """
 
 from __future__ import annotations
@@ -157,8 +158,8 @@ def read_gt(info: dict) -> Dict[str, np.ndarray]:
 
 class DetectionDataset:
     """Per-frame detection samples with fixed-shape padded points + CenterNet targets
-    (WaymoDataset + its pipeline, datasets/waymo/waymo.py:18-104; no GT-aug
-    sampling)."""
+    (WaymoDataset + its pipeline, datasets/waymo/waymo.py:18-104), with the GT-aug
+    ``db_sampler`` where one is given."""
 
     def __init__(
         self,
@@ -174,6 +175,7 @@ class DetectionDataset:
         global_translate_std=0.0,
         shuffle_points: bool = True,
         seed: int = 0,
+        db_sampler=None,
     ):
         self.infos = infos
         self.class_names = list(class_names)
@@ -187,6 +189,7 @@ class DetectionDataset:
         self.global_translate_std = global_translate_std
         self.shuffle_points = shuffle_points
         self.rng = np.random.default_rng(seed)
+        self.db_sampler = db_sampler
 
     def __len__(self):
         return len(self.infos)
@@ -202,6 +205,20 @@ class DetectionDataset:
                 [n in self.class_names for n in gt["names"]], bool
             )
             boxes, names = gt["boxes"][keep].copy(), gt["names"][keep]
+
+            if self.db_sampler is not None:
+                sampled = self.db_sampler.sample_all(boxes, names, self.rng)
+                if sampled is not None:
+                    boxes = np.concatenate([boxes, sampled["gt_boxes"]], axis=0)
+                    names = np.concatenate([names, sampled["gt_names"]], axis=0)
+                    # the pasted points first, zero-padded to the frame's feature width
+                    spts = sampled["points"]
+                    width = points.shape[1]
+                    if spts.shape[1] < width:
+                        spts = np.concatenate(
+                            [spts, np.zeros((len(spts), width - spts.shape[1]), np.float32)],
+                            axis=1)
+                    points = np.concatenate([spts[:, :width], points], axis=0)
 
             boxes, points = random_flip_both(boxes, points, self.rng)
             boxes, points = global_rotation(boxes, points, self.rng, self.global_rot_noise)

@@ -12,14 +12,18 @@ Training is data-parallel by default, as tdal's (``tdal_torch.parallel.mesh.laun
 under ``torchrun --nproc_per_node N -m tdal_torch.tools.train ...`` each process is one
 rank; a plain launch spawns one rank per visible card; ``--no_data_parallel`` trains on
 one card, and ``--device cpu`` without a launcher is one rank. The batch is global: by
-default the config's ``samples_per_gpu`` times the number of ranks. The GT-aug sampler
-is not ported yet.
+default the config's ``samples_per_gpu`` times the number of ranks.
+
+A config whose ``train_preprocessor.db_sampler`` is enabled trains with GT-aug from the
+database that ``python -m tdal_torch.tools.create_data waymo_data_prep`` writes; the
+log says whether the sampler is on (and for which classes) or off, and why.
 """
 
 import argparse
 from pathlib import Path
 
 from tdal_torch.data.detection import DetectionDataset
+from tdal_torch.data.gt_augment import build_db_sampler
 from tdal_torch.data.waymo_schema import load_pickle
 from tdal_torch.models.builder import (
     build_assigner, build_detector, build_test_cfg, build_two_stage_engine, build_voxel_config,
@@ -31,7 +35,7 @@ from tdal_torch.runtime.config import Config
 from tdal_torch.runtime.logging_utils import create_logger, fix_seed, quiet_logger
 from tdal_torch.runtime.schedules import adam_with_schedule, one_cycle
 from tdal_torch.runtime.train_state import TrainState, param_count
-from tdal_torch.tools._common import add_device, refuse
+from tdal_torch.tools._common import add_device
 
 
 def parse_args():
@@ -56,6 +60,34 @@ def parse_args():
     return parser.parse_args()
 
 
+def build_train_dataset(cfg, infos, assigner, voxel_cfg, seed: int = 0, logger=None):
+    """The training ``DetectionDataset`` of ``cfg`` over ``infos``: its augmentations
+    from ``cfg.train_preprocessor`` and, where its ``db_sampler`` is enabled and the
+    dbinfos file exists, the GT-aug sampler (5 point features for one sweep, 6
+    otherwise), as ``tools/train.py`` builds it. The dataset's draws and the sampler's
+    come from ``seed``: every rank of a data-parallel run builds the same global batches."""
+    pre = cfg.get("train_preprocessor", {})
+    data_train = cfg.data["train"]
+    nsweeps = data_train.get("nsweeps", 1)
+    cfg_db = pre.get("db_sampler") or {}
+    db_sampler = build_db_sampler(cfg_db, point_features=5 if nsweeps == 1 else 6, seed=seed)
+    if logger is not None:
+        if db_sampler is not None:
+            logger.info(f"GT-aug database sampler on ({cfg_db['db_info_path']}): sample "
+                        f"groups {db_sampler.sample_groups}")
+        elif cfg_db.get("enable", False):
+            logger.info(f"GT-aug database sampler off: its database {cfg_db['db_info_path']} "
+                        f"is missing")
+        else:
+            logger.info("GT-aug database sampler off (not enabled in the config)")
+    return DetectionDataset(
+        infos, data_train["class_names"], assigner, voxel_cfg, mode="train", nsweeps=nsweeps,
+        max_points=data_train.get("max_points", 200000),
+        global_rot_noise=tuple(pre.get("global_rot_noise", (-0.785398, 0.785398))),
+        global_scale_noise=tuple(pre.get("global_scale_noise", (0.95, 1.05))),
+        shuffle_points=pre.get("shuffle_points", True), seed=seed, db_sampler=db_sampler)
+
+
 def main():
     args = parse_args()
     launch(train, (args,), args.device, data_parallel=not args.no_data_parallel)
@@ -65,9 +97,6 @@ def train(mesh, args):
     """One rank's training (``mesh`` None: the only process)."""
     device = args.device if mesh is None else mesh.device
     cfg = Config.fromfile(args.config)
-    pre = cfg.get("train_preprocessor", {})
-    if (pre.get("db_sampler") or {}).get("enable", False):
-        refuse("the GT-aug database sampler")
     work_dir = Path(args.work_dir or cfg.get("work_dir", "./work_dirs/train"))
     work_dir.mkdir(parents=True, exist_ok=True)
     logger = create_logger(work_dir / "train.log") if is_main(mesh) else quiet_logger()
@@ -91,12 +120,7 @@ def train(mesh, args):
     assigner = build_assigner(cfg.train_cfg["assigner"], detector)
     data_train = cfg.data["train"]
     infos = load_pickle(args.info_path or data_train["info_path"])
-    train_ds = DetectionDataset(
-        infos, data_train["class_names"], assigner, voxel_cfg, mode="train",
-        nsweeps=data_train.get("nsweeps", 1), max_points=data_train.get("max_points", 200000),
-        global_rot_noise=tuple(pre.get("global_rot_noise", (-0.785398, 0.785398))),
-        global_scale_noise=tuple(pre.get("global_scale_noise", (0.95, 1.05))),
-        shuffle_points=pre.get("shuffle_points", True), seed=seed)
+    train_ds = build_train_dataset(cfg, infos, assigner, voxel_cfg, seed, logger)
     logger.info(f"{len(train_ds)} train frames")
 
     val_ds = None

@@ -14,6 +14,8 @@ write their checkpoint, prediction.pkl and det_annos.
 import importlib
 import importlib.util
 import json
+import pickle
+import shutil
 import sys
 from pathlib import Path
 
@@ -248,3 +250,137 @@ def test_detector_clis_write_profiler_traces(tmp_path):
     for name in ("train", "inference"):
         trace = json.loads((prof / f"{name}.trace.json").read_text())
         assert trace["traceEvents"], name
+
+
+def _messages(log_file):
+    """A log file's messages, without the time and level the loggers put before them."""
+    return [line.split("  ", 2)[2] for line in Path(log_file).read_text().splitlines()]
+
+
+def test_create_data_writes_tdals_files(tmp_path):
+    """``create_data waymo_data_prep`` on a Waymo-layout root writes the infos pickle, the
+    dbinfos pickle and the ``.bin`` crops that ``tools/create_data.py`` writes there, byte
+    for byte; with ``--no_gt_database`` the infos only; ``frame_cache`` writes one
+    ``.tdc`` a frame; nuScenes is refused and ``waymo_convert`` needs the devkit."""
+    from tdal.data.synthetic import SyntheticScene
+
+    for i in range(2):
+        SyntheticScene(i, n_frames=5, seed=7, n_static=2, n_dynamic=1, points_per_object=64,
+                       n_background=256).write(tmp_path, split="train")
+    outputs = {}
+    for side, run in (("tdal", _run_tdal), ("port", _run_port)):
+        run("create_data.py" if side == "tdal" else "create_data",
+            ["waymo_data_prep", "--root_path", tmp_path])
+        files = sorted(p for p in tmp_path.rglob("*")
+                       if p.is_file() and "train" not in p.relative_to(tmp_path).parts)
+        outputs[side] = {p.relative_to(tmp_path): p.read_bytes() for p in files}
+        for p in tmp_path.iterdir():
+            if p.name != "train":
+                shutil.rmtree(p) if p.is_dir() else p.unlink()
+    assert outputs["port"].keys() == outputs["tdal"].keys()
+    names = {str(p) for p in outputs["port"]}
+    assert {"infos_train_01sweeps_filter_zero_gt.pkl",
+            "dbinfos_train_1sweeps_withvelo.pkl"} <= names
+    assert sum(n.endswith(".bin") for n in names) == 9  # VEHICLE at frames 0, 4 and 8
+    for name, data in outputs["port"].items():
+        if name.suffix == ".pkl":
+            assert_same(pickle.loads(data), pickle.loads(outputs["tdal"][name]), str(name))
+        else:
+            assert data == outputs["tdal"][name], name
+    _run_port("create_data", ["waymo_data_prep", "--root_path", tmp_path, "--split", "train",
+                              "--nsweeps", 2, "--no_gt_database"])
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "infos_train_02sweeps_filter_zero_gt.pkl", "train"]
+    _run_port("create_data", ["frame_cache", "--info_path",
+                              tmp_path / "infos_train_02sweeps_filter_zero_gt.pkl"])
+    assert len(list(tmp_path.rglob("*.tdc"))) == 10
+    with pytest.raises(NotImplementedError, match="nuScenes"):
+        _run_port("create_data", ["nuscenes_data_prep", "--root_path", tmp_path])
+    with pytest.raises(ImportError, match="waymo_open_dataset"):
+        _run_port("create_data", ["waymo_convert", "--records", "a.tfrecord", "--out_root",
+                                  tmp_path])
+
+
+def test_baseline_eval_and_line_search_clis_match_tools(segment, tmp_path, capsys):
+    """``static_init``, ``dynamic_init``, ``eval`` and ``waymo_tracking.line_search``
+    (``--device cpu``) on the segment's stage-4 files: the same logged and printed
+    values, and the same patched det_annos, as their ``tools/`` files."""
+    from tdal.data.waymo_schema import transform_box_np
+
+    val = segment / "torch" / "val"
+    if not (val / "trackStatic.pkl").exists():  # this file's first test writes them
+        _stages_2_to_4(_run_port, segment, "torch")
+    info_path = segment / "infos.pkl"
+    runs = {"tdal": (_run_tdal, "", []), "port": (_run_port, ".py", CPU)}
+
+    def both(tool, argv, work=None):
+        out = {}
+        for side, (run, suffix, extra) in runs.items():
+            name = tool + ".py" if side == "tdal" else tool.replace("/", ".")
+            capsys.readouterr()
+            run(name, [*argv, *(["--work_dir", tmp_path / side / work] if work else []),
+                       *(extra if tool != "waymo_tracking/line_search" else [])])
+            out[side] = capsys.readouterr().out
+        return out
+
+    both("static_init", ["--track", val / "trackStatic.pkl", "--infos", info_path,
+                         "--det_annos", val / "det_annos.pkl"], "static")
+    logs = {s: [m.replace(str(tmp_path / s), "W") for m in
+                _messages(tmp_path / s / "static" / "log" / "init.txt")] for s in runs}
+    assert logs["port"] == logs["tdal"]
+    assert any("[Init]" in m for m in logs["port"]) and any("[Static]" in m for m in logs["port"])
+    assert_same(load_pickle(tmp_path / "port" / "static" / "box" / "static_init.pkl"),
+                load_pickle(tmp_path / "tdal" / "static" / "box" / "static_init.pkl"))
+
+    both("dynamic_init", ["--track", val / "trackDynamic.pkl", "--infos", info_path], "dynamic")
+    logs = {s: _messages(tmp_path / s / "dynamic" / "log" / "init.txt") for s in runs}
+    assert logs["port"] == logs["tdal"] and any("[Init]" in m for m in logs["port"])
+
+    # static labels: each track's box at its first frame, in that frame, moved and turned
+    # clear of the GT box: where a label's edges nearly coincide with the GT's, the
+    # edge-integral IoU of both packages is discontinuous (ROADMAP.md section 3)
+    track = load_pickle(val / "track.pkl")
+    annos = AnnoStore(reorganize_info(load_pickle(info_path)))
+    labels = {}
+    for i, (ID, t) in enumerate(track.items()):
+        box = transform_box_np(np.asarray(t["bbox"][0], np.float64)[None],
+                               annos.inv_pose(t["token"][0]))
+        move = np.array([0.3 + 0.1 * (i % 3), -0.2, 0.05, 0, 0, 0, 0.12])
+        labels[ID] = {"token": t["token"][0], "bbox": box[0] + move}
+    dump_pickle(labels, tmp_path / "static_labels.pkl")
+    printed = both("eval", ["--track", val / "track.pkl", "--infos", info_path,
+                            "--static", tmp_path / "static_labels.pkl"])
+    assert printed["port"] == printed["tdal"] and "mIOU of static" in printed["port"]
+
+    printed = both("waymo_tracking/line_search", [
+        "--checkpoint", segment / "prediction.pkl", "--info_path", info_path,
+        "--score_thresholds", 0.5, 0.9, "--vehicle_dists", 0.8, 2.0])
+    assert printed["port"] == printed["tdal"] and printed["port"].count("tracks") == 4
+
+
+def test_train_cli_trains_with_gt_aug(tmp_path):
+    """``train`` on a config whose ``db_sampler`` is enabled (the refusal is gone): with
+    the database that ``create_data waymo_data_prep`` wrote it trains with the sampler
+    on, and says so; with the database missing it says the sampler is off."""
+    from tdal.data.synthetic import SyntheticScene
+
+    for i in range(2):
+        SyntheticScene(i, n_frames=4, seed=5, n_static=3, n_dynamic=1, points_per_object=64,
+                       n_background=256).write(tmp_path / "data", split="train")
+    _run_port("create_data", ["waymo_data_prep", "--root_path", tmp_path / "data"])
+    for case, db in (("on", "dbinfos_train_1sweeps_withvelo.pkl"),
+                     ("missing", "dbinfos_train_01sweeps_withvelo.pkl")):  # the configs' name
+        cfg = tmp_path / f"pp_tiny_gt_aug_{case}.py"
+        cfg.write_text((ROOT / "configs" / "synthetic" / "pp_tiny.py").read_text() + (
+            f"\ntrain_preprocessor['db_sampler'] = dict(enable=True, db_info_path="
+            f"{str(tmp_path / 'data' / db)!r}, sample_groups=[dict(VEHICLE=15)], "
+            f"db_prep_steps=[dict(filter_by_min_num_points=dict(VEHICLE=5))], rate=1.0)\n"))
+        work = tmp_path / case
+        _run_port("train", [cfg, "--work_dir", work, "--info_path",
+                            tmp_path / "data" / "infos_train_01sweeps_filter_zero_gt.pkl",
+                            "--total_epochs", 1, "--batch_size", 4, "--no_val", *CPU])
+        log = (work / "train.log").read_text()
+        want = ("GT-aug database sampler on" if case == "on" else
+                "GT-aug database sampler off: its database")
+        assert want in log, log
+        assert [c.name for c in (work / "checkpoints").glob("step_*.pt")] == ["step_00000002.pt"]

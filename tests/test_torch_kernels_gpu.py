@@ -341,6 +341,68 @@ def test_detector_train_step_on_card_runs_the_kernels(cuda):
 
 
 @pytest.mark.gpu
+def test_gt_aug_train_step_on_card_runs_the_kernels(cuda, tmp_path):
+    """One train step of pp_tiny (a narrow PointPillars) on a batch that the GT-aug
+    sampler filled, from a database that ``create_data``'s ``waymo_data_prep`` wrote,
+    through ``train``'s ``build_train_dataset``: on the card it launches K3, K5 and K7 or
+    K4 at every stride-1 3x3 conv, and its loss matches the same step on a CPU copy."""
+    import copy
+    from pathlib import Path
+
+    import numpy as np
+
+    from tdal_torch.data.detection import collate_detection
+    from tdal_torch.data.synthetic import SyntheticScene
+    from tdal_torch.data.waymo_schema import load_pickle
+    from tdal_torch.models.builder import build_assigner, build_detector, build_voxel_config
+    from tdal_torch.models.center_head import center_head_loss
+    from tdal_torch.models.layers import FusedConvBN
+    from tdal_torch.pipeline.detector_engine import TARGET_KEYS, batch_to_device
+    from tdal_torch.runtime.config import Config
+    from tdal_torch.tools.create_data import waymo_data_prep
+    from tdal_torch.tools.train import build_train_dataset
+
+    torch.backends.cudnn.allow_tf32 = False
+    for i in range(2):
+        SyntheticScene(i, n_frames=4, seed=5, n_static=3, n_dynamic=1, points_per_object=64,
+                       n_background=512).write(tmp_path, split="train")
+    waymo_data_prep(tmp_path)
+    cfg = Config.fromfile(Path(__file__).resolve().parent.parent / "configs/synthetic/pp_tiny.py")
+    cfg.train_preprocessor["db_sampler"] = dict(
+        enable=True, db_info_path=str(tmp_path / "dbinfos_train_1sweeps_withvelo.pkl"),
+        sample_groups=[dict(VEHICLE=15)], db_prep_steps=[dict(filter_by_min_num_points=dict(
+            VEHICLE=5))], rate=1.0)
+    # without the velocity head, as tests/test_torch_parallel.py: the synthetic boxes'
+    # 8-wide targets train none
+    head = dict(cfg.model["bbox_head"])
+    head["common_heads"] = {k: v for k, v in head["common_heads"].items() if k != "vel"}
+    vox = build_voxel_config(cfg.voxel_generator, train=True)
+    model = build_detector(dict(cfg.model, bbox_head=head), vox, device="cpu", seed=0)
+    ds = build_train_dataset(cfg, load_pickle(tmp_path / "infos_train_01sweeps_filter_zero_gt.pkl"),
+                             build_assigner(cfg.assigner, model), vox, seed=0)
+    gt = [len(ds.infos[i]["gt_boxes"]) for i in (0, 5)]
+    batch = collate_detection([ds[0], ds[5]])
+    assert int(batch["mask"][0].sum()) > sum(gt)  # boxes were pasted
+    sites = sum(isinstance(m, FusedConvBN) for m in model.modules())
+    chained = sites - len(model.rpn.blocks) - 1
+    losses = []
+    for dev in (cuda, torch.device("cpu")):
+        m = copy.deepcopy(model).to(dev).train()
+        b = batch_to_device(batch, dev)
+        before = dict(cv.launches)
+        total, _ = center_head_loss(m(b["points"]), {k: b[k] for k in TARGET_KEYS},
+                                    [1.0] * 8)
+        total.backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert {k: cv.launches[k] - before[k] for k in before} == {
+                "conv3x3_fwd_stats": sites, "conv3x3_fwd": sites - chained,
+                "conv3x3_dgrad_act": chained, "conv3x3_wgrad": sites}
+        losses.append(float(total.detach()))
+    assert np.isfinite(losses[0]) and losses[0] == pytest.approx(losses[1], rel=1e-4)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("model_type", ["one_box_est", "dynamic"])
 def test_labeler_train_step_on_card_matches_the_cpu(cuda, model_type):
     """One labeler train step on the card (plain layers: K1/K2 are eval-only) against

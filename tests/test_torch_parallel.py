@@ -207,6 +207,38 @@ def detector_validation(mesh, train_infos, val_infos, work_dir) -> dict:
                 detections=run.run_inference(state, val_ds, test_cfg, 2, log, mesh=mesh))
 
 
+def gt_aug_rows(mesh, info_path, db_info_path, epochs=2) -> dict:
+    """pp_tiny's training set with the GT-aug sampler on (``train``'s
+    ``build_train_dataset``, seed 0): every global batch of ``BATCH`` over ``epochs``
+    epochs as ``train_detector`` builds them, cut to this rank's rows, and the boxes the
+    sampler pasted."""
+    from tdal_torch.models.builder import build_assigner, build_detector, build_voxel_config
+    from tdal_torch.pipeline.detector_run import detection_batches
+    from tdal_torch.runtime.config import Config
+    from tdal_torch.data.waymo_schema import load_pickle
+    from tdal_torch.tools.train import build_train_dataset
+
+    cfg = Config.fromfile(PP_TINY)
+    cfg.train_preprocessor["db_sampler"] = dict(
+        enable=True, db_info_path=db_info_path, sample_groups=[dict(VEHICLE=15)],
+        db_prep_steps=[dict(filter_by_min_num_points=dict(VEHICLE=5))], rate=1.0)
+    vox = build_voxel_config(cfg.voxel_generator, train=True)
+    assigner = build_assigner(cfg.assigner, build_detector(cfg.model, vox, "cpu", 0))
+    ds = build_train_dataset(cfg, load_pickle(info_path), assigner, vox, seed=0)
+    pasted, sample_all = [], ds.db_sampler.sample_all
+
+    def recorded(*args):
+        out = sample_all(*args)
+        pasted.append(0 if out is None else len(out["gt_boxes"]))
+        return out
+
+    ds.db_sampler.sample_all = recorded
+    rows = [pmesh.shard_batch({k: v for k, v in batch.items() if k != "token"}, mesh)
+            for epoch in range(epochs)
+            for batch in detection_batches(ds, BATCH, shuffle=True, seed=epoch)]
+    return dict(rows=rows, pasted=pasted)
+
+
 def _rank_jobs(mesh, job_file, out_dir):
     """A spawned rank: every job of ``job_file`` (name -> (function, kwargs)), its
     results saved to ``out_dir/<rank>.pt``."""
@@ -379,8 +411,24 @@ def validation_case(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def gt_aug_case(tmp_path_factory):
+    """A Waymo-layout training root (2 scenes of 4 frames) and its GT database, from
+    ``create_data``'s ``waymo_data_prep``."""
+    from tdal_torch.data.synthetic import SyntheticScene
+    from tdal_torch.tools.create_data import waymo_data_prep
+
+    root = tmp_path_factory.mktemp("gt_aug")
+    for i in range(2):
+        SyntheticScene(i, n_frames=4, seed=5, n_static=3, n_dynamic=1, points_per_object=64,
+                       n_background=256).write(root, split="train")
+    waymo_data_prep(root)
+    return dict(info_path=str(root / "infos_train_01sweeps_filter_zero_gt.pkl"),
+                db_info_path=str(root / "dbinfos_train_1sweeps_withvelo.pkl"))
+
+
+@pytest.fixture(scope="module")
 def ranks(tmp_path_factory, pp_case, labeler_case, voxelnet_case, two_stage_case,
-          validation_case):
+          validation_case, gt_aug_case):
     """Every data-parallel job on 2 spawned gloo ranks: name -> [rank 0's, rank 1's]."""
     work = tmp_path_factory.mktemp("ranks")
     pp = dict(model=pp_case["model"], batch=pp_case["batch"],
@@ -395,6 +443,7 @@ def ranks(tmp_path_factory, pp_case, labeler_case, voxelnet_case, two_stage_case
     jobs[("voxelnet", None)] = (detector_step, voxelnet_case)
     jobs[("two_stage", None)] = (two_stage_step, two_stage_case)
     jobs["validation"] = (detector_validation, dict(validation_case, work_dir=str(work)))
+    jobs["gt_aug"] = (gt_aug_rows, gt_aug_case)
     torch.save(jobs, work / "jobs.pt")
     pmesh.spawn(_rank_jobs, (str(work / "jobs.pt"), str(work)), devices=["cpu"] * WORLD)
     per_rank = [torch.load(work / f"{r}.pt", weights_only=False) for r in range(WORLD)]
@@ -591,6 +640,24 @@ def test_two_process_gloo_init_from_the_launcher_environment(tmp_path):
             outs.append(p.communicate()[0])
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0 and f"rank {r}: OK" in out, out
+
+
+def test_gt_aug_global_batches_are_the_single_process_rows(ranks, gt_aug_case):
+    """With the GT-aug sampler on, each rank builds the whole global batch from the same
+    seeds (the dataset's and the sampler's), so its rows of every batch over two epochs
+    are the single process's rows, exactly, pasted boxes included."""
+    from test_torch_cli_chain import assert_same
+
+    single = gt_aug_rows(None, **gt_aug_case)
+    assert sum(single["pasted"]) > 0
+    b = BATCH // WORLD
+    for r, got in enumerate(ranks["gt_aug"]):
+        assert got["pasted"] == single["pasted"]
+        for i, (rows, batch) in enumerate(zip(got["rows"], single["rows"], strict=True)):
+            want = {k: ([a[r * b:(r + 1) * b] for a in v] if isinstance(v, list)
+                        else v[r * b:(r + 1) * b] if isinstance(v, np.ndarray) else v)
+                    for k, v in batch.items()}
+            assert_same(rows, want, f"rank {r}, batch {i}")
 
 
 def test_draws_are_the_single_process_rows(ranks, two_stage_case):
