@@ -39,7 +39,9 @@ nothing of JAX or of ``tdal``, and exits non-zero on any failure. Phases:
    with positive shifts (a halo leak shows there), in f32 and bf16 and with the input
    affine on and off; kernel, twin and cuDNN times (CUDA events, warm, median of 10;
    cuDNN with ``torch.backends.cudnn.benchmark`` on, so its own fastest algorithm, in
-   a child process, so that the plans it finds stay out of phases 6-7) and the bound;
+   a child process, so that the plans it finds stay out of phases 6-7; it runs during
+   phase 12's CPU work, which leaves the card idle, and phase 5's cuDNN times are
+   printed after phase 12) and the bound;
    for K7 also the unfused route (K4, then the mask and sums in torch) and cuDNN's
    ``conv2d_input`` with the same epilogue. Then K4 as ``conv3x3`` (the function of
    tdal's benchmark prototype, ``benchmarks/proto_pallas_conv.py``) in bf16 at the
@@ -88,7 +90,8 @@ nothing of JAX or of ``tdal``, and exits non-zero on any failure. Phases:
    only at knife-edge points counted and taken out; loss, BN running statistics,
    gradients within 8x a noise floor measured on the CPU copy as phase 6 measures its
    own, parameters after the update), and the same step with torch's unbiased running
-   variance must fail it. (b) The Waymo PP detector, from phase 6's weights, trained in
+   variance must fail it. (b) The Waymo PP detector, from phase 6's snapshot, trained
+   under ``deterministic`` (so the rounds it needs are the same in every run) in
    rounds of 45 steps (batch 4, Adam 3e-3 clipped at 35, at most 180 steps, each step
    K3 16, K4 4, K7 12, K5/K6 16 launches) on a bus-sized segment (10 frames, 6 static
    and 2 dynamic objects, no global augmentation noise) until the chain it feeds labels
@@ -103,17 +106,19 @@ nothing of JAX or of ``tdal``, and exits non-zero on any failure. Phases:
    f32, batch 4, through ``train_detector`` on 8 synthetic frames of 160000 background
    points (each must hold 150000 points and fill 100000 of the 180000 voxels; the
    occupied voxels at each backbone level are printed against their caps): a warm
-   epoch, then 2 epochs with the conv launch counters from 0 (per step K3 and K5/K6
+   epoch under ``deterministic`` (its end is (c)'s first stage), then 2 epochs with
+   the conv launch counters from 0 (per step K3 and K5/K6
    13, K7 10, K4 3), the step alone, the sparse backbone alone, one profiled step
    (device time by category and the idle share), and one step at batch 2 held against
    a CPU copy as phase 6 holds its own (plus the running statistics against their own
    noise floor), with a control whose subm backward drops a tap (must fail) and one
    with the unbiased running variance (printed). (b) ``run_inference`` at the test
    settings (400000 voxels, NMS pre 4096 / post 500 at IoU 0.7, score 0.1) with (a)'s
-   weights over 24 synthetic frames: frames/s, forward and decode + NMS times, peak
+   weights over 12 synthetic frames: frames/s, forward and decode + NMS times, peak
    memory, and two frames held against a CPU copy as phase 7 holds its batch. (c) The
-   frozen-first-stage two-stage config (first stage bf16 from (a)'s weights, RoIHead
-   512 x 5 inputs, 128 RoIs an image): ``train_two_stage`` for an epoch, the step
+   frozen-first-stage two-stage config (first stage bf16 from (a)'s snapshot, RoIHead
+   512 x 5 inputs, 128 RoIs an image), all under ``deterministic``, so that its check
+   repeats: ``train_two_stage`` for an epoch, the step
    alone, the first stage unchanged, predict's frames/s, and one RoI head step against
    a CPU copy on the same RoIs, features, draws and dropout masks, with the unbiased
    running variance as a control that must fail;
@@ -149,20 +154,39 @@ nothing of JAX or of ``tdal``, and exits non-zero on any failure. Phases:
    step, and fails on fewer than 1 pasted box a frame on average, a pasted box that
    collides with another box of its frame, a non-finite loss, or launches other than
    K3 16, K4 4, K7 12 and K5/K6 16 a step;
-12. one line ``{"kernels": [...]}`` (K1, K2, K3, K4, K5/K6, K7, and K4 again as the
-   benchmark prototype's function), each kernel's ``launches`` from phases 8, 9, 10(b)
-   and 11;
-13. the last line ``{"ok": true, "device": {...}}``. The seconds each phase took are
+12. the deformable head on ``configs/waymo/voxelnet/waymo_centerpoint_voxelnet_two_
+   sweeps_3x_with_velo.py`` with ``bbox_head.dcn_head`` set and nothing else changed
+   (the 40 x 1504 x 1504 grid, the sparse backbone, two sweeps of six point features,
+   the velocity head, the 10 code weights), bf16 as the config declares, batch 4, on 8
+   synthetic frames of phase 9's slab, each with the frame 0.1 s before it as its
+   previous sweep. (a) ``train_detector``: a warm epoch under ``deterministic`` (its end
+   is (b)'s snapshot), then 2 steps with the conv launch counters from 0 (per step K3
+   and K5/K6 13, K7 9, K4 4); the step alone, the head's forward + backward alone and
+   its peak memory, peak memory, training frames/s. (b) One step of the snapshot in f32
+   at batch 2 on the card against a CPU copy under ``deterministic``, held as phase 9
+   (a) holds its own (the library error of the head's cuDNN convs included), with a
+   sampler that splits coordinates by ``trunc`` in place of ``floor`` as a control that
+   must fail; the sampling coordinates within 1e-6 of an integer and those whose floor
+   differs between the card and the CPU are counted. (c) ``run_inference`` at the
+   config's test settings over 8 frames after a warm pass (frames/s with the host data,
+   forward and decode + NMS apart, peak memory) and one frame in f32 against a CPU copy
+   as phase 7 holds its batch;
+13. one line ``{"kernels": [...]}`` (K1, K2, K3, K4, K5/K6, K7, and K4 again as the
+   benchmark prototype's function), each kernel's ``launches`` from phases 8, 9, 10(b),
+   11 and 12;
+14. the last line ``{"ok": true, "device": {...}}``. The seconds each phase took are
    printed before the ``kernels`` line.
 
 ``--noise-probe STATES`` builds and then runs only ``noise_probe``: on the card, how
 often phase 6's comparison would fail a step that differs by rounding alone.
-``--offboard-only`` builds and then runs only phase 8, from a fresh detector (seed 0)
-in place of phase 6's weights, and prints no ``kernels`` line; ``--voxelnet-only``
+``--offboard-only`` builds and then runs only phase 8, from phase 6's snapshot (its
+first epoch alone), and prints no ``kernels`` line; ``--voxelnet-only``
 builds and then runs only phase 9; ``--dp-only`` builds and then runs only phase 10,
 from phase 6's snapshot (its first epoch alone); ``--pp-only`` builds and then runs
 only phase 6;
-``--data-prep-only`` builds and then runs only phase 11, from a fresh detector.
+``--data-prep-only`` builds and then runs only phase 11, from a fresh detector;
+``--dcn-only`` builds and then runs only phase 12, and prints its seconds and peak
+memory.
 """
 
 from __future__ import annotations
@@ -707,14 +731,51 @@ def library_times(device) -> dict:
     return out
 
 
-def library_times_apart() -> dict:
-    """``library_times`` in a child process (this script with ``--library-times``)."""
-    r = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--library-times"],
-                       capture_output=True, text=True, timeout=900)
-    if r.returncode != 0:
-        raise RuntimeError(f"the library timing process failed:\n{r.stdout[-2000:]}"
-                           f"\n{r.stderr[-2000:]}")
-    return json.loads(r.stdout.strip().splitlines()[-1])
+class LibraryTimes:
+    """``library_times`` in a child process (this script with ``--library-times``),
+    started while the parent leaves the card idle (phase 12's CPU work) and waited for
+    before the parent uses the card again; ``stop`` ends it if it still runs."""
+
+    def __init__(self):
+        self.proc = self.ms = self.seconds = None
+
+    def start(self):
+        self.out, self.err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--library-times"],
+            stdout=self.out, stderr=self.err, text=True)
+        return self.wait
+
+    def wait(self):
+        rc = self.proc.wait(timeout=900)
+        self.seconds = time.perf_counter() - self.t0
+        self.out.seek(0)
+        self.err.seek(0)
+        out, err = self.out.read(), self.err.read()
+        if rc != 0:
+            raise RuntimeError(f"the library timing process failed:\n{out[-2000:]}"
+                               f"\n{err[-2000:]}")
+        self.ms = json.loads(out.strip().splitlines()[-1])
+        log(f"  cuDNN's times in benchmark mode, in a process of their own that ran during "
+            f"phase 12's CPU work ({self.seconds:.1f} s)")
+        return self.ms
+
+    def stop(self):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def attach_library_times(results: dict, lib_ms: dict):
+    """Phase 5's readings get their cuDNN time (``library_ms``), each logged beside the
+    kernel's."""
+    for name, by_case in results.items():
+        for case, r in by_case.items():
+            mode_case = case.removesuffix(" in_act")
+            r["library_ms"] = lib_ms[f"{name}|{mode_case}"]
+            log(f"  {name} {case}: kernel {r['ms']:.3f} ms, library {r['library_ms']:.3f} ms "
+                f"({r['library_ms'] / r['ms']:.2f}x), twin {r['plain_ms']:.3f} ms")
 
 
 def dgrad_act_scales(gy, wt, x, s, t):
@@ -759,40 +820,36 @@ def conv_work(name, b, h, w, c, co, itemsize):
     return flops, nbytes
 
 
-def conv_reading(name, case, errs, ms, plain_ms, library_ms, work, bf16, **extra):
-    """One kernel case's result: errors, times, bound; logged."""
+def conv_reading(name, case, errs, ms, plain_ms, work, bf16, **extra):
+    """One kernel case's result: errors, times, bound; logged (cuDNN's time comes later,
+    ``attach_library_times``)."""
     bound_ms, bound_by = bound(work, bf16)
     r = dict(max_abs_err=max(e[0] for e in errs), max_rel_err=max(e[1] for e in errs),
-             tol=[e[2] for e in errs], ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+             tol=[e[2] for e in errs], ms=ms, plain_ms=plain_ms, library_ms=None,
              bound_ms=bound_ms, bound_by=bound_by, gflop=work[0] / 1e9,
              tflops=work[0] / ms / 1e9, **extra)
     more = "".join(f", {k.replace('_ms', '')} {v:.3f} ms" for k, v in extra.items()
                    if k.endswith("_ms"))
     log(f"  {name} {case}: max abs err {r['max_abs_err']:.3e}, rel {r['max_rel_err']:.3e}; "
-        f"kernel {ms:.3f} ms ({r['tflops']:.1f} TFLOP/s), twin {plain_ms:.3f} ms, "
-        f"library {library_ms:.3f} ms{more}, bound {bound_ms:.3f} ms ({bound_by})")
+        f"kernel {ms:.3f} ms ({r['tflops']:.1f} TFLOP/s), twin {plain_ms:.3f} ms"
+        f"{more}, bound {bound_ms:.3f} ms ({bound_by})")
     return r
 
 
 def phase_conv(device) -> dict:
     """K3, K4 (dgrad), K5/K6 and K7 against their twins at the production shapes, and
-    K4 as the benchmark prototype's ``conv3x3``."""
+    K4 as the benchmark prototype's ``conv3x3``; cuDNN's times are attached later
+    (``attach_library_times``)."""
     from tdal_torch.ops import conv3x3 as cv
 
     results = {k: {} for k in (*CONV_REPLACES, PROTO["name"])}
     failures = []
-    t0 = time.perf_counter()
-    lib_ms = library_times_apart()
-    log(f"  cuDNN's times in benchmark mode, in a process of their own "
-        f"({time.perf_counter() - t0:.1f} s)")
     for shape_name, (b, h, w, c, co) in CONV_SHAPES.items():
         for dtype, mode in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             inp = conv_case_inputs(shape_name, dtype, device)
             x, wt, bias, s, t, gy = (inp[k] for k in ("x", "wt", "bias", "s", "t", "gy"))
             wf = cv._flip_swap(wt)
             zero_c = torch.zeros(c, device=device)
-            library_ms = {k: lib_ms[f"{k}|{shape_name} {mode}"]
-                          for k in library_calls(inp, shape_name, mode)}
             tol_y, tol_acc = CONV_TOL[dtype]
             bf16 = dtype == torch.bfloat16
             for in_act in (False, True):
@@ -820,7 +877,7 @@ def phase_conv(device) -> dict:
                     r = results[name][case] = conv_reading(
                         name, f"{case} B={b} {h}x{w} {c}->{co}", errs,
                         time_ms(kernel[name], reps=10, warm=2),
-                        time_ms(plain[name], reps=5, warm=1), library_ms[name],
+                        time_ms(plain[name], reps=5, warm=1),
                         conv_work(name, b, h, w, c, co, x.element_size()), bf16)
                     if not all(e[1] <= e[2] for e in errs):
                         failures.append(f"{name} {case}: {json.dumps(r)}")
@@ -840,7 +897,6 @@ def phase_conv(device) -> dict:
                         time_ms(lambda: cv.conv3x3_dgrad_act(gy, wf, x, s, t), reps=10, warm=2),
                         time_ms(lambda: cv.conv3x3_dgrad_act_plain(gy, wf, x, s, t), reps=5,
                                 warm=1),
-                        library_ms[name],
                         conv_work(name, b, h, w, c, co, x.element_size()), bf16,
                         unfused_ms=time_ms(lambda: dgrad_act_unfused(gy, wf, x, s, t),
                                            reps=10, warm=2),
@@ -860,7 +916,6 @@ def phase_conv(device) -> dict:
                         name, f"{case} B={b} {h}x{w} {c}->{co}", errs,
                         time_ms(lambda: cv.conv3x3(x, wt), reps=10, warm=2),
                         time_ms(lambda: cv.conv3x3_fwd_plain(x, wt, zero_co), reps=5, warm=1),
-                        library_ms[name],
                         conv_work(name, b, h, w, c, co, x.element_size()), bf16)
                 if not all(e[1] <= e[2] for e in errs):
                     failures.append(f"{name} {case}: {json.dumps(r)}")
@@ -928,6 +983,45 @@ def deterministic():
                                  and "CUBLAS_WORKSPACE_CONFIG" not in str(w.message)}))
 
 
+def library_conv_probes(m, captured):
+    """Forward hooks on the head's cuDNN (or oneDNN) convs whose f32 weight gradient
+    ``step_with_grads`` holds against float64: each SepHead's final block-diagonal conv
+    and, in a deformable head, the heatmap branch's two convs and the two 1x1 offset
+    convs. Fills ``captured`` in the forward; returns, per conv, (parameter name, weight,
+    mask or None, padding, key of its input in ``captured``, keys of the tensors whose
+    concatenation is its output)."""
+    from tdal_torch.models.dcn import DCNSepHead
+
+    def keep(key, fn):
+        return lambda mod, args, out: captured.__setitem__(key, fn(args, out))
+
+    probes = []
+    for t, task in enumerate(m.head.tasks):
+        pre = f"head.tasks.{t}."
+        sep = task.reg if isinstance(task, DCNSepHead) else task
+        sp = pre + ("reg." if sep is not task else "")
+        sep.branch_convbn0.register_forward_hook(keep(sp + "in", lambda a, o: o.detach()))
+        probes.append((sp + "final_conv_weight", sep.final_conv_weight, sep.final_conv_mask,
+                       1, sp + "in", [f"{t}/{n}" for n in sep.names]))
+        if sep is task:
+            continue
+        task.cls_bn.register_forward_hook(keep(pre + "cls_out", lambda a, o: a[0]))
+        task.cls_bn.register_forward_hook(keep(pre + "hm_in",
+                                               lambda a, o: torch.relu(o).detach()))
+        probes += [(pre + "cls_conv.weight", task.cls_conv.weight, None, 1,
+                    pre + "center", [pre + "cls_out"]),
+                   (pre + "hm_conv.weight", task.hm_conv.weight, None, 1, pre + "hm_in",
+                    [f"{t}/hm"])]
+        for name in ("center_adapt", "reg_adapt"):
+            fa = getattr(task, name)
+            fa.deform.register_forward_hook(keep(f"{pre}{name}.x", lambda a, o: a[0].detach()))
+            fa.deform.register_forward_hook(keep(f"{pre}{name}.offsets", lambda a, o: a[1]))
+            probes.append((f"{pre}{name}.offset.weight", fa.offset.weight, None, 0,
+                           f"{pre}{name}.x", [f"{pre}{name}.offsets"]))
+        task.center_adapt.register_forward_hook(keep(pre + "center", lambda a, o: o.detach()))
+    return probes
+
+
 def step_with_grads(model, batch, device, cfg, n_steps_total, perturb=0.0, perturb_seed=1,
                     mesh=None):
     """One train step of a copy of ``model`` on ``device``: (loss, gradients, state
@@ -938,7 +1032,7 @@ def step_with_grads(model, batch, device, cfg, n_steps_total, perturb=0.0, pertu
     gradients are summed over the ranks before the update, and the loss and library
     errors are summed over them too.
 
-    The library error of each SepHead's final conv (a cuDNN or oneDNN conv, not a
+    The library error of each of ``library_conv_probes``' convs (cuDNN or oneDNN, not a
     kernel of the port) is the largest distance of its f32 weight gradient from a
     float64 weight gradient of the same input and cotangent."""
     from torch.nn.grad import conv2d_weight
@@ -959,32 +1053,34 @@ def step_with_grads(model, batch, device, cfg, n_steps_total, perturb=0.0, pertu
                              cfg.grad_clip["max_norm"], mom)
     b = batch_to_device(shard_batch(batch, mesh), device)
     head = cfg.model["bbox_head"]
-    inputs = {}
-    for t, sep in enumerate(m.head.tasks):
-        sep.branch_convbn0.register_forward_hook(
-            lambda mod, args, out, t=t: inputs.__setitem__(t, out.detach()))
+    captured = {}
+    probes = library_conv_probes(m, captured)
     with scope(mesh):
         preds = m(b["points"])
         total, _ = center_head_loss(preds, {k: b[k] for k in TARGET_KEYS},
-                                    head["code_weights"], head["weight"])
-        outs = [p[n] for sep, p in zip(m.head.tasks, preds) for n in sep.names]
-        couts = torch.autograd.grad(total, outs, retain_graph=True)
+                                    head["code_weights"], head["weight"],
+                                    has_vel=m.with_velocity)
+        for t, p in enumerate(preds):
+            captured.update({f"{t}/{n}": v for n, v in p.items()})
+        keys = [k for *_, outs in probes for k in outs]
+        couts = dict(zip(keys, torch.autograd.grad(total, [captured[k] for k in keys],
+                                                   retain_graph=True)))
         total.backward()
-        finals = {f"head.tasks.{t}.final_conv_weight": sep.final_conv_weight.grad.detach()
-                  .cpu().double() for t, sep in enumerate(m.head.tasks)}  # this rank's
+        lib_f32 = {name: w.grad.detach().cpu().double()  # this rank's
+                   for name, w, *_ in probes}
         if mesh is not None:
             all_reduce_grads(m.parameters(), mesh)
         loss = float(sum_logs({"loss": total.detach()})["loss"])
     grads = {n: p.grad.detach().cpu().double() for n, p in m.named_parameters()}
-    lib_err, k = {}, 0
-    for t, sep in enumerate(m.head.tasks):
-        g = torch.cat(couts[k : k + len(sep.names)], dim=-1).double()
-        k += len(sep.names)
-        dw = conv2d_weight(inputs[t].double().permute(0, 3, 1, 2), sep.final_conv_weight.shape,
-                           g.permute(0, 3, 1, 2), padding=1) * sep.final_conv_mask
-        name = f"head.tasks.{t}.final_conv_weight"
-        lib_err[name] = float((finals[name] - dw.cpu()).abs().max())
-    del inputs, couts
+    lib_err = {}
+    for name, w, mask, pad, inp, outs in probes:
+        g = torch.cat([couts[k] for k in outs], dim=-1).double()
+        dw = conv2d_weight(captured[inp].double().permute(0, 3, 1, 2), w.shape,
+                           g.permute(0, 3, 1, 2), padding=pad)
+        if mask is not None:
+            dw = dw * mask
+        lib_err[name] = float((lib_f32[name] - dw.cpu()).abs().max())
+    del captured, couts
     if mesh is not None:  # the ranks' errors on their rows bound that of their sum
         with mesh:
             lib_err = {k: float(v) for k, v in sum_logs(
@@ -1076,8 +1172,9 @@ def compare_steps(model, card, cpu, noise_grads, lr0, noise_states=None):
         # sides round differently and no permutation reorders)
         terms = [float((want - g[k]).abs().max()) for g in noise_grads]
         noise = max(terms)
-        # plus, for a final conv's weight, both libraries' measured f32 error: a
-        # same-sign sum over B*H*W, whose rounding no permutation shows
+        # plus, for a library conv's weight (``library_conv_probes``), both
+        # libraries' measured f32 error: a same-sign sum over B*H*W, whose rounding no
+        # permutation shows
         base = 1e-4 * float(want.abs().max()) + 1e-6
         lib = lib_gpu.get(k, 0.0) + lib_cpu.get(k, 0.0)
         tol = max(base, GRAD_NOISE_MARGIN * noise) + lib
@@ -1980,11 +2077,14 @@ def phase_labelers(device, root: Path, logger) -> dict:
     return out
 
 
-def phase_offboard(device, cfg, trained) -> dict:
+def phase_offboard(device, cfg, weights: dict) -> dict:
     """8: the labelers trained on the card (8(a)), then the Waymo PP detector, from
-    ``trained``'s weights, trained in rounds on a bus-sized segment until the chain it
-    feeds labels a static box (at most ``CHAIN_MAX_STEPS`` steps); then ``measure`` of
-    the whole chain with the launch counters set to 0 just before the timed pass."""
+    ``weights`` (phase 6's snapshot), trained in rounds on a bus-sized segment until
+    the chain it feeds labels a static box (at most ``CHAIN_MAX_STEPS`` steps); then
+    ``measure`` of the whole chain with the launch counters set to 0 just before the
+    timed pass. The rounds run under ``deterministic``: from the snapshot their
+    detections, and so the number of rounds the chain needs, are the same in every run
+    (before, from phase 6's last weights, one run in five needed more than the cap)."""
     from tdal_torch.data.detection import DetectionDataset
     from tdal_torch.data.synthetic import make_synthetic_dataset
     from tdal_torch.data.waymo_schema import AnnoStore, reorganize_info
@@ -2012,7 +2112,7 @@ def phase_offboard(device, cfg, trained) -> dict:
         t0 = time.perf_counter()
         voxel_cfg = build_voxel_config(cfg.voxel_generator, train=True)
         model = build_detector(cfg.model, voxel_cfg, device=device)
-        model.load_state_dict(trained.state_dict())
+        model.load_state_dict(weights)
         assigner = build_assigner(cfg.assigner, model)
         test_vox = build_voxel_config(cfg.voxel_generator, train=False)
         infer_model = build_detector(cfg.model, test_vox, device=device)  # the test pillars
@@ -2041,28 +2141,31 @@ def phase_offboard(device, cfg, trained) -> dict:
         rounds, steps = [], 0
         for k in cv.launches:
             cv.launches[k] = 0
-        while steps < CHAIN_MAX_STEPS:
-            t1 = time.perf_counter()
-            epochs = CHAIN_ROUND_STEPS // steps_per_epoch
-            train_detector(state, train_ds, head["code_weights"], n_epoch=epochs,
-                           batch_size=PP_BATCH, logger=logger,
-                           work_dir=root / f"det_round{len(rounds)}", weight=head["weight"],
-                           log_every=steps_per_epoch * epochs, seed=len(rounds))
-            torch.cuda.synchronize()
-            steps += epochs * steps_per_epoch
-            train_s = time.perf_counter() - t1
-            shutil.rmtree(root / f"det_round{len(rounds)}")  # its checkpoint per epoch
-            infer_model.load_state_dict(model.state_dict())
-            detections = run_inference(TrainState(infer_model, None), seg[0], test_cfg,
-                                       PP_BATCH, logger)
-            res = label_chain(detections,
-                              seg[1], seg[2], chain_labelers, root / f"round{len(rounds)}",
-                              logger, device=device, **CHAIN_KW)
-            rounds.append(dict(steps=steps, train_s=train_s, counts=res["counts"]))
-            log(f"  detector round {len(rounds)}: {steps} steps in all ({train_s:.1f} s for "
-                f"this round's {epochs * steps_per_epoch}); chain counts {res['counts']}")
-            if res["counts"]["static_boxes_labeled"] > 0:
-                break
+        with deterministic() as named:
+            while steps < CHAIN_MAX_STEPS:
+                t1 = time.perf_counter()
+                epochs = CHAIN_ROUND_STEPS // steps_per_epoch
+                train_detector(state, train_ds, head["code_weights"], n_epoch=epochs,
+                               batch_size=PP_BATCH, logger=logger,
+                               work_dir=root / f"det_round{len(rounds)}", weight=head["weight"],
+                               log_every=steps_per_epoch * epochs, seed=len(rounds))
+                torch.cuda.synchronize()
+                steps += epochs * steps_per_epoch
+                train_s = time.perf_counter() - t1
+                shutil.rmtree(root / f"det_round{len(rounds)}")  # its checkpoint per epoch
+                infer_model.load_state_dict(model.state_dict())
+                detections = run_inference(TrainState(infer_model, None), seg[0], test_cfg,
+                                           PP_BATCH, logger)
+                res = label_chain(detections,
+                                  seg[1], seg[2], chain_labelers, root / f"round{len(rounds)}",
+                                  logger, device=device, **CHAIN_KW)
+                rounds.append(dict(steps=steps, train_s=train_s, counts=res["counts"]))
+                log(f"  detector round {len(rounds)}: {steps} steps in all ({train_s:.1f} s for "
+                    f"this round's {epochs * steps_per_epoch}); chain counts {res['counts']}")
+                if res["counts"]["static_boxes_labeled"] > 0:
+                    break
+        log(f"  the rounds ran under deterministic algorithms; ops without a deterministic "
+            f"version: {named or 'none'}")
         conv_launches = dict(cv.launches)
         per_step = {k: v / steps for k, v in conv_launches.items()}
         for k, v in conv_launches.items():
@@ -2119,7 +2222,8 @@ VN_TWO_STAGE = Path("configs/waymo/voxelnet/two_stage/"
                     "waymo_centerpoint_voxelnet_two_stage_bev_5point_ft_6epoch_freeze.py")
 VN_DATA = dict(n_scenes=1, n_frames=8, seed=0, n_static=10, n_dynamic=10,
                points_per_object=256, n_background=160000)
-VN_TEST_DATA = dict(VN_DATA, n_frames=24, seed=1)
+# 12 test frames (24 until phase 12 joined the script, which then ran past 900 s)
+VN_TEST_DATA = dict(VN_DATA, n_frames=12, seed=1)
 VN_BATCH, VN_WARM_EPOCHS, VN_TIMED_EPOCHS = 4, 1, 2
 VN_TIMED = VN_TIMED_EPOCHS * VN_DATA["n_frames"] // VN_BATCH  # steps
 VN_CHECK_BATCH = 2  # the card-vs-CPU step check's batch: the CPU copy at the full grid
@@ -2325,7 +2429,13 @@ def phase_voxelnet_train(device, root: Path) -> tuple:
                 (work / "logs" / "metrics.jsonl").read_text().splitlines()]
         return time.perf_counter() - t0, rows
 
-    warm_s, warm_rows = run("warm", VN_WARM_EPOCHS)
+    # the warm epoch's end, reached through deterministic algorithms only, is (c)'s first
+    # stage: (c)'s check is then a function of the code, not of the run
+    with deterministic() as named:
+        warm_s, warm_rows = run("warm", VN_WARM_EPOCHS)
+    snapshot = copy.deepcopy(model).cpu()
+    log(f"  warm epoch under deterministic algorithms in {warm_s:.1f} s (its end is (c)'s "
+        f"first stage); ops without a deterministic version: {named or 'none'}")
     torch.cuda.reset_peak_memory_stats()
     for k in cv.launches:
         cv.launches[k] = 0
@@ -2395,7 +2505,7 @@ def phase_voxelnet_train(device, root: Path) -> tuple:
                backbone_ms=backbone_ms, peak_gib=peak_gib, occupancy=occupancy,
                points_per_frame=n_points, profiled_step=profiled,
                check_batch=VN_CHECK_BATCH, **check)
-    return out, cfg, model, ds
+    return out, cfg, model, ds, snapshot
 
 
 def phase_voxelnet_infer(device, cfg, trained, root: Path) -> dict:
@@ -2495,9 +2605,12 @@ def roi_step(engine, rois, labels, scores, feats, gt, draws, device):
 
 
 def phase_two_stage(device, trained, ds_train, root: Path) -> dict:
-    """(c): the freeze config at full width, its first stage bf16 from (a)'s weights:
+    """(c): the freeze config at full width, its first stage bf16 from (a)'s snapshot:
     RoI head training, the first stage unchanged, predict, and one RoI head step
-    against a CPU copy fed the same RoIs, features, draws and dropout masks."""
+    against a CPU copy fed the same RoIs, features, draws and dropout masks. All of it
+    runs under ``deterministic``, so the check's inputs, and its verdict, are the same
+    in every run (before, from (a)'s last weights, a ReLU on a knife edge failed it in
+    one run of about ten)."""
     from tdal_torch.data.detection import collate_detection
     from tdal_torch.models.builder import (
         build_detector, build_test_cfg, build_two_stage_engine, build_voxel_config,
@@ -2526,60 +2639,61 @@ def phase_two_stage(device, trained, ds_train, root: Path) -> dict:
         f"{engine.roi_head.shared[0].linear.in_features}, {engine.roi_cfg.roi_per_image} "
         f"RoIs an image, {n_head} RoI head parameters (the optimizer's), "
         f"{param_count(engine) - n_head} frozen")
-    first_before = {k: v.clone() for k, v in engine.first.state_dict().items()}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    train_two_stage(state, ds_train, 1, VN_BATCH, logger, root / "two_stage", log_every=1)
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
-    batch = collate_detection([ds_train[i] for i in range(VN_BATCH)])
-    train_step, predict_step = make_two_stage_steps(engine)
-    gen = torch.Generator().manual_seed(0)
-    step_s = []
-    for _ in range(3):
+    with deterministic() as named:
+        first_before = {k: v.clone() for k, v in engine.first.state_dict().items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        logs = train_step(state, batch, generator=gen)
+        train_two_stage(state, ds_train, 1, VN_BATCH, logger, root / "two_stage", log_every=1)
         torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    changed = [k for k, v in engine.first.state_dict().items()
-               if not torch.equal(v, first_before[k])]
-    if changed or not math.isfinite(float(logs["loss"])):
-        raise AssertionError(f"the frozen first stage changed ({changed[:5]}) or the loss "
-                             f"is not finite ({float(logs['loss'])})")
-    points = torch.as_tensor(batch["points"], device=device)
-    pred_s = []
-    for _ in range(4):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        preds = predict_step(state, points)
-        torch.cuda.synchronize()
-        pred_s.append(time.perf_counter() - t0)
-    if not (torch.isfinite(preds["box3d_lidar"]).all() and preds["valid"].any()):
-        raise AssertionError("two-stage predictions not finite or empty")
-    out = dict(train_s=train_s, step_ms=1e3 * statistics.median(step_s), peak_gib=peak_gib,
-               loss=float(logs["loss"]), first_stage_unchanged=True,
-               predict_frames_per_s=VN_BATCH / statistics.median(pred_s[1:]),
-               kept=int(preds["valid"].sum()))
-    log(f"  train_two_stage: {len(ds_train) // VN_BATCH} steps in {train_s:.2f} s; RoI head "
-        f"step alone {out['step_ms']:.1f} ms (median of 3), loss {out['loss']:.4f}; peak "
-        f"memory {peak_gib:.2f} GiB; the first stage's parameters and running statistics "
-        f"unchanged; predict {out['predict_frames_per_s']:.2f} frames/s ({out['kept']} "
-        f"boxes valid in the batch)")
+        train_s = time.perf_counter() - t0
+        batch = collate_detection([ds_train[i] for i in range(VN_BATCH)])
+        train_step, predict_step = make_two_stage_steps(engine)
+        gen = torch.Generator().manual_seed(0)
+        step_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            logs = train_step(state, batch, generator=gen)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        changed = [k for k, v in engine.first.state_dict().items()
+                   if not torch.equal(v, first_before[k])]
+        if changed or not math.isfinite(float(logs["loss"])):
+            raise AssertionError(f"the frozen first stage changed ({changed[:5]}) or the loss "
+                                 f"is not finite ({float(logs['loss'])})")
+        points = torch.as_tensor(batch["points"], device=device)
+        pred_s = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            preds = predict_step(state, points)
+            torch.cuda.synchronize()
+            pred_s.append(time.perf_counter() - t0)
+        if not (torch.isfinite(preds["box3d_lidar"]).all() and preds["valid"].any()):
+            raise AssertionError("two-stage predictions not finite or empty")
+        out = dict(train_s=train_s, step_ms=1e3 * statistics.median(step_s), peak_gib=peak_gib,
+                   loss=float(logs["loss"]), first_stage_unchanged=True,
+                   predict_frames_per_s=VN_BATCH / statistics.median(pred_s[1:]),
+                   kept=int(preds["valid"].sum()))
+        log(f"  train_two_stage: {len(ds_train) // VN_BATCH} steps in {train_s:.2f} s; RoI head "
+            f"step alone {out['step_ms']:.1f} ms (median of 3), loss {out['loss']:.4f}; peak "
+            f"memory {peak_gib:.2f} GiB; the first stage's parameters and running statistics "
+            f"unchanged; predict {out['predict_frames_per_s']:.2f} frames/s ({out['kept']} "
+            f"boxes valid in the batch)")
 
-    # one RoI head step, card against a CPU copy, on the same first-stage outputs
-    with torch.no_grad():
-        _, rois, labels, scores, feats, _ = engine.first_stage_rois(points, train=False)
-    # tdal's slice of the GT rows for a 7-wide code (two_stage_engine._gt_of)
-    gt = torch.as_tensor(batch["gt_boxes_and_cls"], device=device)[..., :8]
-    draws = engine.draws(rois.shape[0], rois.shape[1], torch.Generator().manual_seed(1))
-    first_out = [t.float().cpu() for t in (rois, labels, scores, feats, gt)]
-    first_out[1] = labels.cpu()
-    card = roi_step(engine, *first_out, draws, device)
-    cpu = roi_step(engine, *first_out, draws, torch.device("cpu"))
-    with unbiased_running_variance():
-        control = roi_step(engine, *first_out, draws, device)
+        # one RoI head step, card against a CPU copy, on the same first-stage outputs
+        with torch.no_grad():
+            _, rois, labels, scores, feats, _ = engine.first_stage_rois(points, train=False)
+        # tdal's slice of the GT rows for a 7-wide code (two_stage_engine._gt_of)
+        gt = torch.as_tensor(batch["gt_boxes_and_cls"], device=device)[..., :8]
+        draws = engine.draws(rois.shape[0], rois.shape[1], torch.Generator().manual_seed(1))
+        first_out = [t.float().cpu() for t in (rois, labels, scores, feats, gt)]
+        first_out[1] = labels.cpu()
+        card = roi_step(engine, *first_out, draws, device)
+        cpu = roi_step(engine, *first_out, draws, torch.device("cpu"))
+        with unbiased_running_variance():
+            control = roi_step(engine, *first_out, draws, device)
 
     def errors(a):
         g = max(float((a[1][k] - cpu[1][k]).abs().max()) / max(1e-12, float(cpu[1][k].abs().max()))
@@ -2590,9 +2704,11 @@ def phase_two_stage(device, trained, ds_train, root: Path) -> dict:
                     stat_rel_err=st)
 
     out["roi_check"], out["roi_control_unbiased"] = errors(card), errors(control)
+    out["nondeterministic_ops"] = named
     log(f"  one RoI head step on the card against a CPU copy (same RoIs, features, draws "
         f"and dropout masks): {out['roi_check']} (tol: {ROI_TOL}); control with the "
-        f"unbiased running variance: {out['roi_control_unbiased']}")
+        f"unbiased running variance: {out['roi_control_unbiased']}; (c) ran under "
+        f"deterministic algorithms, ops without a deterministic version: {named or 'none'}")
     if not all(out["roi_check"][k] <= tol for k, tol in ROI_TOL.items()):
         raise AssertionError(f"the RoI head step differs from the CPU's: {out['roi_check']}")
     if not out["roi_control_unbiased"]["stat_rel_err"] > ROI_TOL["stat_rel_err"]:
@@ -2606,13 +2722,13 @@ def phase_voxelnet(device) -> dict:
         root = Path(tmp)
         t0 = time.perf_counter()
         log("  (a) VoxelNet training")
-        train, cfg, model, ds = phase_voxelnet_train(device, root)
+        train, cfg, model, ds, snapshot = phase_voxelnet_train(device, root)
         t_a = time.perf_counter() - t0
         log("  (b) VoxelNet inference")
         infer = phase_voxelnet_infer(device, cfg, model, root)
         t_b = time.perf_counter() - t0 - t_a
         log("  (c) the two-stage detector, first stage frozen")
-        two = phase_two_stage(device, model, ds, root)
+        two = phase_two_stage(device, snapshot, ds, root)
         t_c = time.perf_counter() - t0 - t_a - t_b
     log(f"  phase 9 seconds: training {t_a:.1f}, inference {t_b:.1f}, two-stage {t_c:.1f}")
     return dict(train=train, infer=infer, two_stage=two, seconds=[t_a, t_b, t_c])
@@ -3184,6 +3300,339 @@ def phase_data_prep(device, pp_state=None) -> dict:
                 launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the deformable head on the two-sweep velocity VoxelNet
+# ---------------------------------------------------------------------------
+
+DCN_CONFIG = Path("configs/waymo/voxelnet/waymo_centerpoint_voxelnet_two_sweeps_3x_with_velo.py")
+# 9 frames of phase 9's slab: frame f >= 1 is a training frame, frame f - 1 its previous
+# sweep (0.1 s earlier; the ego has moved 0.5 m and the dynamic objects 0.3-0.8 m)
+DCN_DATA = dict(VN_DATA, n_frames=9)
+DCN_TEST_DATA = dict(DCN_DATA, seed=1)
+DCN_TIME_LAG = 0.1
+DCN_BATCH, DCN_TIMED_EPOCHS = 4, 1
+DCN_TIMED = DCN_TIMED_EPOCHS * (DCN_DATA["n_frames"] - 1) // DCN_BATCH  # steps
+DCN_CHECK_BATCH = 2
+# the 13 stride-1 3x3 sites of the step: the RPN's 11 (phase 9's), the head's shared
+# conv and the regression SepHead's fused first conv. 9 are chained (K7): the RPN's;
+# the shared conv's output is materialised for the deformable sampling, so the SepHead
+# conv takes no input affine, and neither does the shared conv (K4 at both)
+DCN_SITES, DCN_CHAINED = 13, 9
+DCN_LAUNCHES = {"conv3x3_fwd_stats": DCN_SITES, "conv3x3_fwd": DCN_SITES - DCN_CHAINED,
+                "conv3x3_dgrad_act": DCN_CHAINED, "conv3x3_wgrad": DCN_SITES}
+KNIFE_EDGE = 1e-6  # a sampling coordinate this close to an integer is counted
+
+
+def dcn_model_cfg(cfg, dtype=None) -> dict:
+    """The config's model with ``bbox_head.dcn_head`` on (and ``dtype`` where given)."""
+    model = dict(cfg.model, bbox_head=dict(cfg.model["bbox_head"], dcn_head=True))
+    return model if dtype is None else dict(model, dtype=dtype)
+
+
+def two_sweep_infos(root: Path, data: dict) -> list:
+    """A synthetic segment of ``data``'s frames under ``root``: the infos of every frame
+    but the first, each with the frame before it as its one previous sweep (its
+    ``transform_matrix`` maps that frame's vehicle frame into this one's)."""
+    from tdal_torch.data.synthetic import make_synthetic_dataset
+
+    infos, scenes = make_synthetic_dataset(root, **data)
+    poses = scenes[0].ego_poses
+    return [dict(infos[f], sweeps=[dict(path=infos[f - 1]["path"], time_lag=DCN_TIME_LAG,
+                                        transform_matrix=np.linalg.inv(poses[f]) @ poses[f - 1])])
+            for f in range(1, len(infos))]
+
+
+@contextlib.contextmanager
+def trunc_sampling():
+    """A wrong sampler for a control: ``deform_sample`` splits each coordinate with
+    ``trunc`` in place of ``floor`` (they differ for every negative coordinate)."""
+    from tdal_torch.models import dcn
+
+    original = dcn._cell
+    dcn._cell = torch.trunc
+    try:
+        yield
+    finally:
+        dcn._cell = original
+
+
+def sampling_coordinates_of(model, points) -> list:
+    """The sampling coordinates (ys, xs stacked) of each deformable conv of ``model`` in
+    a train-mode forward of a copy on ``points``' device."""
+    from tdal_torch.models.dcn import DeformConv, sampling_coordinates
+
+    m = copy.deepcopy(model).train()
+    coords = []
+    hooks = [d.register_forward_hook(lambda mod, args, out: coords.append(torch.stack(
+        sampling_coordinates(args[1], mod.kernel_size)).cpu()))
+        for d in m.modules() if isinstance(d, DeformConv)]
+    with torch.no_grad():
+        m(points)
+    for h in hooks:
+        h.remove()
+    return coords
+
+
+def knife_edges(model, points, device) -> dict:
+    """For each deformable conv, on the card and on a CPU copy: the sampling coordinates
+    within ``KNIFE_EDGE`` of an integer, and those whose floor differs between the two
+    (the corners they interpolate differ, and so do their one-sided offset gradients)."""
+    card = sampling_coordinates_of(copy.deepcopy(model).to(device), points.to(device))
+    cpu = sampling_coordinates_of(model.cpu(), points.cpu())
+    out = []
+    for c, p in zip(card, cpu):
+        out.append(dict(coordinates=c.numel(),
+                        near_card=int(((c - c.round()).abs() < KNIFE_EDGE).sum()),
+                        near_cpu=int(((p - p.round()).abs() < KNIFE_EDGE).sum()),
+                        floors_differ=int((c.floor() != p.floor()).sum()),
+                        largest_offset=float((p - p.round()).abs().max())))
+    return dict(zip(("center_adapt", "reg_adapt"), out))
+
+
+def dcn_head_alone(model, batch, device, code_weights) -> dict:
+    """The deformable head's forward + backward alone (train mode, its loss), on the RPN
+    output of ``batch``: median ms of 3 after a warm call, and its peak memory above
+    what was held before it; the head's running statistics restored after."""
+    from tdal_torch.models.center_head import center_head_loss
+    from tdal_torch.pipeline.detector_engine import TARGET_KEYS, batch_to_device
+
+    head, saved = model.head, copy.deepcopy(model.head.state_dict())
+    b = batch_to_device(batch, device)
+    feats = {}
+    hook = head.register_forward_pre_hook(lambda mod, args: feats.__setitem__("x", args[0]))
+    model.train()
+    with torch.no_grad():
+        model(b["points"])
+    hook.remove()
+    x = feats["x"].detach()
+    times = []
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(4):
+        t0 = time.perf_counter()
+        preds = head(x)
+        total, _ = center_head_loss(preds, {k: b[k] for k in TARGET_KEYS},
+                                    code_weights, 2.0, has_vel=True)
+        total.backward()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - base
+    model.zero_grad(set_to_none=True)
+    head.load_state_dict(saved)
+    return dict(ms=1e3 * statistics.median(times[1:]), peak_gib=peak / 2**30,
+                input_shape=list(x.shape), input_dtype=str(x.dtype))
+
+
+def phase_dcn(device, overlap=None) -> dict:
+    """Phase 12: the two-sweep velocity VoxelNet config with ``dcn_head`` at full width,
+    bf16 as the config declares. (a) ``train_detector`` at batch 4: a warm epoch under
+    ``deterministic`` (its end is the check's snapshot), then ``DCN_TIMED`` steps with the
+    conv launch counters from 0; the step alone, the head alone, peak memory. (b) One
+    step at batch 2 of the snapshot in f32 on the card against a CPU copy, under
+    ``deterministic``, as phase 9 (a) holds its own; a sampler with ``trunc`` in place
+    of ``floor`` must fail it; the sampling coordinates on a knife edge counted.
+    (c) ``run_inference`` at the config's test settings over 8 frames, and one frame in
+    f32 against a CPU copy. ``overlap``: a function called as (b) begins, whose CPU
+    work leaves the card idle, that starts work of its own on the card and returns a
+    function that waits for it; called before (c)."""
+    from tdal_torch.data.detection import DetectionDataset, collate_detection
+    from tdal_torch.models.builder import (
+        build_assigner, build_detector, build_test_cfg, build_voxel_config,
+    )
+    from tdal_torch.models.center_head import predict
+    from tdal_torch.ops import conv3x3 as cv
+    from tdal_torch.pipeline.detector_engine import make_detector_steps
+    from tdal_torch.pipeline.detector_run import run_inference, train_detector
+    from tdal_torch.runtime.config import Config
+    from tdal_torch.runtime.schedules import adam_with_schedule, one_cycle
+    from tdal_torch.runtime.train_state import TrainState, param_count
+
+    logger = logging.getLogger("chip_smoke")
+    peaks = []
+
+    def reset_peak():
+        """Keep the peak so far (the phase's is the largest), then start a new one."""
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = Config.fromfile(DCN_CONFIG)
+    head_cfg = cfg.model["bbox_head"]
+    model_cfg = dcn_model_cfg(cfg)
+    voxel_cfg = build_voxel_config(cfg.voxel_generator, train=True)
+    model = build_detector(model_cfg, voxel_cfg, seed=0)
+    pre = cfg.train_preprocessor
+    n_frames = DCN_DATA["n_frames"] - 1
+    total_steps = n_frames // DCN_BATCH * cfg.total_epochs
+    lr, mom = one_cycle(cfg.lr_config["lr_max"], total_steps, tuple(cfg.lr_config["moms"]),
+                        cfg.lr_config["div_factor"], cfg.lr_config["pct_start"])
+    state = TrainState(model, adam_with_schedule(model.parameters(), lr, cfg.optimizer["wd"],
+                                                 cfg.grad_clip["max_norm"], mom))
+    log(f"  {DCN_CONFIG} with dcn_head: {param_count(model)} parameters, {cfg.model['dtype']}, "
+        f"{cfg.nsweeps} sweeps, {cfg.model['reader']['num_input_features']} point "
+        f"features, heads {list(model.head.tasks[0].reg.names) + ['hm']}, "
+        f"{len(head_cfg['code_weights'])} code weights; batch {DCN_BATCH}")
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        infos = two_sweep_infos(root / "data", DCN_DATA)
+        ds = DetectionDataset(
+            infos, cfg.class_names, build_assigner(cfg.assigner, model), voxel_cfg,
+            mode="train", nsweeps=cfg.nsweeps, max_points=cfg.data["train"]["max_points"],
+            global_rot_noise=tuple(pre["global_rot_noise"]),
+            global_scale_noise=tuple(pre["global_scale_noise"]),
+            shuffle_points=pre["shuffle_points"], seed=0)
+        batch = collate_detection([ds[i] for i in range(DCN_BATCH)])
+        pts = batch["points"]
+        n_points = [int(np.isfinite(p[:, 0]).sum()) for p in pts]
+        lags = sorted({float(v) for v in np.unique(pts[..., 5][np.isfinite(pts[..., 5])])})
+        moving = [float(np.abs(a[m > 0][:, 6:8]).max()) for a, m in
+                  zip(batch["anno_box"][0], batch["mask"][0])]
+        log(f"  {len(ds)} two-sweep frames written in {time.perf_counter() - t0:.1f} s; points "
+            f"per frame {n_points}, time lags {lags}; largest velocity target a frame "
+            f"{[round(v, 3) for v in moving]} m/s")
+        if lags != [0.0, float(np.float32(DCN_TIME_LAG))] or not min(moving) > 0:
+            raise AssertionError(f"the frames lack their previous sweep or moving objects: "
+                                 f"time lags {lags}, velocity targets {moving}")
+
+        def run(tag, epochs):
+            work = root / tag
+            t0 = time.perf_counter()
+            train_detector(state, ds, head_cfg["code_weights"], n_epoch=epochs,
+                           batch_size=DCN_BATCH, logger=logger, work_dir=work,
+                           weight=head_cfg["weight"], log_every=1)
+            torch.cuda.synchronize()
+            rows = [json.loads(line) for line in
+                    (work / "logs" / "metrics.jsonl").read_text().splitlines()]
+            return time.perf_counter() - t0, rows
+
+        with deterministic() as named:
+            warm_s, warm_rows = run("warm", 1)
+        snapshot = copy.deepcopy(model).cpu()
+        log(f"  warm epoch under deterministic algorithms in {warm_s:.1f} s (its end is the "
+            f"check's snapshot); ops without a deterministic version: {named or 'none'}")
+        reset_peak()
+        for k in cv.launches:
+            cv.launches[k] = 0
+        timed_s, rows = run("timed", DCN_TIMED_EPOCHS)
+        launches = dict(cv.launches)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        losses = [r["loss"] for r in warm_rows + rows]
+        log(f"  losses {losses}")
+        if not all(math.isfinite(v) for v in losses) or len(rows) != DCN_TIMED:
+            raise AssertionError(f"non-finite or missing losses: {losses}")
+        log(f"  conv kernel launches per step: { {k: v / DCN_TIMED for k, v in launches.items()} } "
+            f"(expected {DCN_LAUNCHES}: {DCN_SITES} stride-1 3x3 sites, {DCN_CHAINED} chained)")
+        for name, n in launches.items():
+            if n != DCN_TIMED * DCN_LAUNCHES[name]:
+                raise AssertionError(f"{name}: {n} launches in {DCN_TIMED} steps, expected "
+                                     f"{DCN_LAUNCHES[name]} per step")
+        step = make_detector_steps(model, head_cfg["code_weights"], head_cfg["weight"])
+        step_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        step_ms = 1e3 * statistics.median(step_s)
+        reset_peak()
+        head = dcn_head_alone(model, batch, device, head_cfg["code_weights"])
+        frames_per_s = DCN_TIMED * DCN_BATCH / timed_s
+        log(f"  train_detector: {DCN_TIMED} steps in {timed_s:.3f} s (host data, logging and a "
+            f"checkpoint included), {frames_per_s:.2f} training frames/s; step alone "
+            f"{step_ms:.1f} ms (median of 3: {', '.join(f'{1e3 * v:.1f}' for v in step_s)}); "
+            f"the deformable head alone, forward + backward on the RPN's "
+            f"{head['input_shape']} {head['input_dtype']} output, {head['ms']:.1f} ms "
+            f"({100 * head['ms'] / step_ms:.1f}% of the step), its peak {head['peak_gib']:.3f} "
+            f"GiB above what was held; peak memory of the timed steps {peak_gib:.2f} GiB")
+        out["train"] = dict(launches=launches, launches_per_step=DCN_LAUNCHES, losses=losses,
+                            step_ms=step_ms, step_s=step_s, timed_s=timed_s,
+                            frames_per_s=frames_per_s, peak_gib=peak_gib, head=head,
+                            warm_s=warm_s, points_per_frame=n_points,
+                            nondeterministic_ops=named)
+
+        # (b) the snapshot's step in f32, card against a CPU copy
+        f32 = build_detector(dcn_model_cfg(cfg, "float32"), voxel_cfg, device="cpu", seed=0)
+        f32.load_state_dict(snapshot.state_dict())
+        check_batch = first_frames(batch, DCN_CHECK_BATCH)
+        wait = overlap() if overlap is not None else None
+        edges = knife_edges(f32, torch.as_tensor(check_batch["points"]), device)
+        log(f"  sampling coordinates within {KNIFE_EDGE:g} of an integer, card / CPU, and "
+            f"coordinates whose floor differs: " + "; ".join(
+                f"{k}: {v['near_card']} / {v['near_cpu']} of {v['coordinates']}, "
+                f"{v['floors_differ']} differ" for k, v in edges.items()))
+        with deterministic() as named_check:
+            check = check_step_with_controls(
+                f32, check_batch, device, cfg, total_steps,
+                {"trunc in place of floor": (f32, trunc_sampling, "grad_err_over_tol")},
+                stat_noise=True)
+        log(f"  the check ran under deterministic algorithms; ops without a deterministic "
+            f"version: {named_check or 'none'}")
+        out["check"] = dict(knife_edges=edges, check_batch=DCN_CHECK_BATCH,
+                            nondeterministic_ops=named_check, **check)
+
+        if wait is not None:
+            wait()
+        # (c) inference at the test settings, bf16; one frame in f32 against the CPU
+        vox_test = build_voxel_config(cfg.voxel_generator, train=False)
+        infer = build_detector(model_cfg, vox_test, device=device, seed=0)
+        infer.load_state_dict(model.state_dict())
+        test_cfg = build_test_cfg(cfg.test_cfg, infer, vox_test)
+        test_infos = two_sweep_infos(root / "test", DCN_TEST_DATA)
+        test_ds = DetectionDataset(test_infos, cfg.class_names,
+                                   build_assigner(cfg.assigner, infer), vox_test, mode="test",
+                                   nsweeps=cfg.nsweeps, max_points=cfg.data["val"]["max_points"])
+        istate = TrainState(infer, None)
+        run_inference(istate, test_ds, test_cfg, INFER_BATCH, logger)  # warm
+        reset_peak()
+        t0 = time.perf_counter()
+        dets = run_inference(istate, test_ds, test_cfg, INFER_BATCH, logger)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        kept = [len(d["scores"]) for d in dets.values()]
+        if len(dets) != len(test_ds) or not all(np.isfinite(d["box3d_lidar"]).all()
+                                                and d["box3d_lidar"].shape[1] == 9
+                                                for d in dets.values()):
+            raise AssertionError("detections missing, not finite or not 9 wide")
+        inf = dict(frames=len(test_ds), total_s=total, frames_per_s=len(test_ds) / total,
+                   kept_per_frame=float(np.mean(kept)),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        points = torch.as_tensor(np.stack([test_ds[i]["points"] for i in range(INFER_BATCH)]),
+                                 device=device)
+        fwd, post = [], []
+        infer.eval()
+        with torch.no_grad():
+            for _ in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                maps = infer(points)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                predict(maps, test_cfg, infer.num_classes)
+                torch.cuda.synchronize()
+                fwd.append(t1 - t0)
+                post.append(time.perf_counter() - t1)
+        inf["forward_ms_per_batch"] = 1e3 * statistics.median(fwd[1:])
+        inf["nms_ms_per_frame"] = 1e3 * statistics.median(post[1:]) / INFER_BATCH
+        log(f"  run_inference (bf16): {inf['frames_per_s']:.3f} frames/s over {len(test_ds)} "
+            f"frames, host data included (after a warm pass); kept boxes per frame "
+            f"{inf['kept_per_frame']:.1f}; peak memory {inf['peak_gib']:.2f} GiB; one batch of "
+            f"{INFER_BATCH}: forward {inf['forward_ms_per_batch']:.1f} ms, decode + NMS "
+            f"{inf['nms_ms_per_frame']:.1f} ms per frame (medians of 3)")
+        del infer, istate, maps
+        f32_infer = build_detector(dcn_model_cfg(cfg, "float32"), vox_test, device=device,
+                                   seed=0)
+        f32_infer.load_state_dict(model.state_dict())
+        inf["cpu_check"] = check_infer_against_cpu(f32_infer, points[:1], test_cfg)
+        out["infer"] = inf
+    reset_peak()
+    out["peak_gib"] = max(peaks) / 2**30
+    return out
+
+
 # a rounding-level relative change of every weight: the probe's stand-in for the
 # card-vs-CPU rounding difference, which costs a minute and a half of CPU to measure
 PROBE_ROUNDING = 2.0**-22
@@ -3252,7 +3701,7 @@ def main() -> int:
                         help="build, then run only the noise-floor probe over STATES "
                              "training states (see noise_probe)")
     parser.add_argument("--offboard-only", action="store_true",
-                        help="build, then run only phase 8 from a fresh detector")
+                        help="build, then run only phase 8 from phase 6's snapshot")
     parser.add_argument("--voxelnet-only", action="store_true",
                         help="build, then run only phase 9")
     parser.add_argument("--dp-only", action="store_true",
@@ -3261,9 +3710,12 @@ def main() -> int:
                         help="build, then run only phase 6")
     parser.add_argument("--data-prep-only", action="store_true",
                         help="build, then run only phase 11 from a fresh detector")
+    parser.add_argument("--dcn-only", action="store_true",
+                        help="build, then run only phase 12")
     parser.add_argument("--library-times", action="store_true",
                         help="only time phase 5's cuDNN calls in benchmark mode and print "
-                             "them as one JSON line (phase 5 runs this in a child process)")
+                             "them as one JSON line (the whole script runs this in a child "
+                             "process during phase 12's CPU work)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
@@ -3328,13 +3780,12 @@ def main() -> int:
         print(json.dumps(noise_probe(device, args.noise_probe)))
         return 0
     if args.offboard_only:
-        from tdal_torch.models.builder import build_detector, build_voxel_config
-        from tdal_torch.runtime.config import Config
-
-        cfg = Config.fromfile(PP_CONFIG)
-        fresh = build_detector(cfg.model, build_voxel_config(cfg.voxel_generator), seed=0)
-        log("phase 8 the offboard chain (alone, from a fresh detector)")
-        print(json.dumps(phase_offboard(device, cfg, fresh), default=str))
+        log("phase 8 the offboard chain (alone, from phase 6's snapshot)")
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg, model = pp_snapshot(Path(tmp))[:2]
+            snapshot = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        del model
+        print(json.dumps(phase_offboard(device, cfg, snapshot), default=str))
         return 0
     if args.voxelnet_only:
         log("phase 9 VoxelNet and the two-stage detector (alone)")
@@ -3354,6 +3805,14 @@ def main() -> int:
         prep = phase_data_prep(device)
         log(f"  phase 11 seconds: {time.perf_counter() - t0:.1f}")
         print(json.dumps(prep, default=str))
+        return 0
+    if args.dcn_only:
+        log("phase 12 the deformable head on the two-sweep velocity VoxelNet (alone)")
+        t0 = time.perf_counter()
+        dcn = phase_dcn(device)
+        log(f"  phase 12 seconds: {time.perf_counter() - t0:.1f}; peak memory "
+            f"{dcn['peak_gib']:.2f} GiB")
+        print(json.dumps(dcn, default=str))
         return 0
     if args.dp_only:
         log("phase 10 data parallelism (alone, from phase 6's snapshot)")
@@ -3375,7 +3834,7 @@ def main() -> int:
     chain = phase_chain(device)
     lap(4)
 
-    log("phase 5 conv kernels against their twins")
+    log("phase 5 conv kernels against their twins (cuDNN's times come in phase 12)")
     from tdal_torch.ops import conv3x3 as cv
 
     cres = phase_conv(device)
@@ -3391,7 +3850,7 @@ def main() -> int:
     lap(7)
 
     log("phase 8 the offboard chain: labeler training, then the detector-fed chain")
-    offboard = phase_offboard(device, pp_cfg, pp_model)
+    offboard = phase_offboard(device, pp_cfg, pp_state)
     lap(8)
     del pp_model
     torch.cuda.empty_cache()
@@ -3408,6 +3867,17 @@ def main() -> int:
     log("phase 11 the port's data preparation and GT-aug training on the Waymo PP config")
     prep = phase_data_prep(device, pp_state)
     lap(11)
+    torch.cuda.empty_cache()
+
+    log("phase 12 the deformable head on the two-sweep velocity VoxelNet")
+    library = LibraryTimes()
+    try:
+        dcn = phase_dcn(device, overlap=library.start)
+    finally:
+        library.stop()
+    lap(12)
+    log("phase 5's kernels beside cuDNN's times")
+    attach_library_times(cres, library.ms)
 
     entries = []
     for name, by_case in kres.items():
@@ -3443,14 +3913,16 @@ def main() -> int:
             name=name, route="cuda", source=CONV_SOURCE,
             replaces=PROTO["replaces"] if proto else CONV_REPLACES[name],
             launches=(offboard["conv_launches"][key] + voxelnet["train"]["launches"][key]
-                      + dp["b"]["launches"][key] + prep["launches"][key]),
+                      + dp["b"]["launches"][key] + prep["launches"][key]
+                      + dcn["train"]["launches"][key]),
             launches_by_path={"phase 6 timed steps": train["launches"][key],
                               "phase 8 detector rounds": offboard["conv_launches"][key],
                               "phase 9 VoxelNet timed steps":
                                   voxelnet["train"]["launches"][key],
                               "phase 10 (b) timed steps, one NCCL rank":
                                   dp["b"]["launches"][key],
-                              "phase 11 GT-aug timed steps": prep["launches"][key]},
+                              "phase 11 GT-aug timed steps": prep["launches"][key],
+                              "phase 12 dcn VoxelNet steps": dcn["train"]["launches"][key]},
             max_abs_err=main_case["max_abs_err"], ms=main_case["ms"],
             plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
             bound_by=main_case["bound_by"], library_ms=main_case["library_ms"],
@@ -3473,6 +3945,7 @@ def main() -> int:
     log(f"  VoxelNet summary: {json.dumps(voxelnet, default=str)}")
     log(f"  data-parallel summary: {json.dumps(dp, default=str)}")
     log(f"  data preparation summary: {json.dumps(prep, default=str)}")
+    log(f"  deformable head summary: {json.dumps(dcn, default=str)}")
     log(f"  seconds by phase (phase 2 from the start): {json.dumps(seconds)}")
     log(f"card: {kind} | {smi}")
     print(json.dumps({"kernels": entries}))

@@ -9,7 +9,9 @@ own walk (``pointpillars_state_dict``): conv ``kernel`` HWIO becomes OIHW, the f
 ``ConvTranspose`` kernel (which flax applies spatially flipped) becomes the
 ``ConvTranspose2d`` weight (Ci, Co, s, s), and ``FusedConvBN``'s ``kernel,
 conv_bias, scale, bias`` + ``mean, var`` keep their names on the port's module.
-VoxelNet (``voxelnet_state_dict``) shares the RPN and head walk; its sparse backbone's
+The head's walk covers every SepHead depth (``sep_head_state_dict``) and the
+deformable head (``dcn_sep_head_state_dict``). VoxelNet (``voxelnet_state_dict``)
+shares the RPN and head walk; its sparse backbone's
 (K, Cin, Cout) weights map one to one, its dense backbone's 3D conv kernels (kd, kh, kw,
 Ci, Co) become (Co, Ci, kd, kh, kw). ``two_stage_state_dict`` adds the RoI head.
 """
@@ -140,11 +142,69 @@ def _rpn_and_head(out: dict, model: nn.Module, params: dict, batch_stats: dict,
 
     p, bs = params["CenterHead_0"], batch_stats["CenterHead_0"]
     _fused(out, f"{prefix}head.shared.", p["FusedConvBN_0"], bs["FusedConvBN_0"])
-    for t in range(len(model.head.tasks)):
-        sp, sbs, pre = p[f"SepHead_{t}"], bs[f"SepHead_{t}"], f"{prefix}head.tasks.{t}."
-        _fused(out, pre + "branch_convbn0.", sp["branch_convbn0"], sbs["branch_convbn0"])
-        out[pre + "final_conv_weight"] = _conv(sp["final_conv_kernel"])
-        out[pre + "final_conv_bias"] = _t(sp["final_conv_bias"])
+    for t, task in enumerate(model.head.tasks):
+        pre = f"{prefix}head.tasks.{t}."
+        if model.head.dcn_head:
+            out.update(dcn_sep_head_state_dict(task, p[f"DCNSepHead_{t}"],
+                                               bs[f"DCNSepHead_{t}"], pre))
+        else:
+            out.update(sep_head_state_dict(task, p[f"SepHead_{t}"], bs[f"SepHead_{t}"], pre))
+
+
+def _conv_and_bias(out, key, p):
+    out[key + "weight"] = _conv(p["kernel"])
+    out[key + "bias"] = _t(p["bias"])
+
+
+def sep_head_state_dict(sep: nn.Module, params: dict, batch_stats: dict,
+                        prefix: str = "") -> dict:
+    """``state_dict`` of a ``tdal_torch.models.center_head.SepHead`` from tdal's
+    SepHead trees, at any depth: the fused branches' ``branch_convbn0`` (FusedConvBN),
+    ``branch_bn{d}``, the masked ``branch_conv{d}_kernel`` / ``_bias`` and
+    ``final_conv_kernel`` / ``_bias`` (or the dense ``final_conv`` at depth 1);
+    independent branches' ``Conv_i`` / ``BatchNorm_j`` in creation order."""
+    out: dict = {}
+    if not sep.fused:
+        convs, bns = itertools.count(), itertools.count()
+        for i, branch in enumerate(sep.branches):
+            key = f"{prefix}branches.{i}."
+            for j in range(len(branch.convs)):
+                _conv_and_bias(out, f"{key}convs.{j}.", params[f"Conv_{next(convs)}"])
+                if j < len(branch.bns):
+                    b = f"BatchNorm_{next(bns)}"
+                    _bn(out, f"{key}bns.{j}.", params[b], batch_stats[b])
+        return out
+    if "branch_convbn0" in params:
+        _fused(out, prefix + "branch_convbn0.", params["branch_convbn0"],
+               batch_stats["branch_convbn0"])
+    for d in range(1, sep.depth - 1):
+        _bn(out, f"{prefix}branch_bn{d}.", params[f"branch_bn{d}"],
+            batch_stats[f"branch_bn{d}"])
+    for name in sep.masked_convs():
+        out[f"{prefix}{name}_weight"] = _conv(params[f"{name}_kernel"])
+        out[f"{prefix}{name}_bias"] = _t(params[f"{name}_bias"])
+    if sep.depth == 1:
+        _conv_and_bias(out, prefix + "final_conv.", params["final_conv"])
+    return out
+
+
+def dcn_sep_head_state_dict(head: nn.Module, params: dict, batch_stats: dict,
+                            prefix: str = "") -> dict:
+    """``state_dict`` of a ``tdal_torch.models.dcn.DCNSepHead`` from tdal's
+    DCNSepHead trees: ``FeatureAdaption_{0,1}`` (its ``Conv_0`` the offset conv, its
+    ``DeformConv_0/kernel`` kept (K*K*C, F)), ``Conv_0`` / ``BatchNorm_0`` / ``Conv_1``
+    the heatmap branch, ``SepHead_0`` the regression heads."""
+    out: dict = {}
+    for i, name in enumerate(("center_adapt", "reg_adapt")):
+        fa = params[f"FeatureAdaption_{i}"]
+        _conv_and_bias(out, f"{prefix}{name}.offset.", fa["Conv_0"])
+        out[f"{prefix}{name}.deform.kernel"] = _t(fa["DeformConv_0"]["kernel"])
+    _conv_and_bias(out, prefix + "cls_conv.", params["Conv_0"])
+    _bn(out, prefix + "cls_bn.", params["BatchNorm_0"], batch_stats["BatchNorm_0"])
+    _conv_and_bias(out, prefix + "hm_conv.", params["Conv_1"])
+    out.update(sep_head_state_dict(head.reg, params["SepHead_0"], batch_stats["SepHead_0"],
+                                   prefix + "reg."))
+    return out
 
 
 def pointpillars_state_dict(model: nn.Module, params: dict, batch_stats: dict,

@@ -194,13 +194,20 @@ class DetectionDataset:
     def __len__(self):
         return len(self.infos)
 
+    # Subclass hooks (``tdal_torch.data.nuscenes.NuScenesDataset`` reads its own schema)
+    def _read_points(self, info) -> np.ndarray:
+        return read_points(info, self.nsweeps)
+
+    def _read_gt(self, info) -> Dict[str, np.ndarray]:
+        return read_gt(info)
+
     def __getitem__(self, index: int) -> dict:
         info = self.infos[index]
-        points = read_points(info, self.nsweeps)
+        points = self._read_points(info)
         item = {"token": info["token"]}
 
         if self.mode == "train":
-            gt = read_gt(info)
+            gt = self._read_gt(info)
             keep = np.array(
                 [n in self.class_names for n in gt["names"]], bool
             )

@@ -1,9 +1,10 @@
 """Config-driven detector construction.
 
 Port of ``tdal/models/builder.py``: ``build_voxel_config``, ``build_detector``
-(PointPillars and VoxelNet), ``build_two_stage_engine`` (the first stage, the BEV
-extractor, the RoI head and its target config from a ``TwoStageDetector`` model tree),
-``build_assigner`` and ``build_test_cfg``.
+(PointPillars and VoxelNet, with the deformable head where ``bbox_head.dcn_head`` is
+set), ``build_two_stage_engine`` (the first stage, the BEV extractor, the RoI head and
+its target config from a ``TwoStageDetector`` model tree), ``build_assigner`` and
+``build_test_cfg``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from tdal_torch.core.targets import AssignerConfig
 from tdal_torch.core.voxel import VoxelConfig
 from tdal_torch.device import resolve_device
 from tdal_torch.models.center_head import SepHead
+from tdal_torch.models.dcn import DeformConv, FeatureAdaption
 from tdal_torch.models.detectors import PointPillars, VoxelNet
 from tdal_torch.models.layers import Conv3x3, FusedConvBN
 from tdal_torch.models.scn_sparse import SparseMiddleBackbone
@@ -46,9 +48,10 @@ def _lecun_(w, fan_in, generator):
 
 def init_detector(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fresh init from ``generator``, as flax initialises tdal's detector: every conv,
-    transposed-conv and dense weight lecun-normal over its fan-in (the masked SepHead
+    transposed-conv and dense weight lecun-normal over its fan-in (a masked SepHead
     conv's fan-in is its branch's block; a sparse conv's (K, Cin, Cout) weight has
-    K * Cin), biases and BatchNorms as constructed (zero biases, the heatmap bias
+    K * Cin; a deformable conv's (K*K*C, F) kernel K*K*C), the deformable head's offset
+    convs zero, biases and BatchNorms as constructed (zero biases, the heatmap bias
     -2.19, unit scales, running stats 0 / 1)."""
     with torch.no_grad():
         for m in model.modules():
@@ -63,10 +66,16 @@ def init_detector(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 _lecun_(w, w.shape[0] * w.shape[2] * w.shape[3], generator)
             elif isinstance(m, nn.Linear):
                 _lecun_(m.weight, m.in_features, generator)
+            elif isinstance(m, DeformConv):
+                _lecun_(m.kernel, m.kernel.shape[0], generator)
             elif isinstance(m, SepHead):
-                w, mask = m.final_conv_weight, m.final_conv_mask
-                _lecun_(w, int(mask[0].sum()), generator)  # fan-in of one branch's block
-                w.mul_(mask)
+                for name in m.masked_convs():
+                    w, mask = getattr(m, f"{name}_weight"), getattr(m, f"{name}_mask")
+                    _lecun_(w, int(mask[0].sum()), generator)  # fan-in of one branch's block
+                    w.mul_(mask)
+        for m in model.modules():
+            if isinstance(m, FeatureAdaption):  # the offsets start at zero
+                m.offset.weight.zero_()
     return model
 
 
@@ -80,8 +89,6 @@ def build_detector(cfg_model: dict, voxel_cfg: VoxelConfig, device=None, seed: i
     dev = resolve_device(device)
     dtype = torch.bfloat16 if cfg_model.get("dtype") == "bfloat16" else torch.float32
     head = cfg_model["bbox_head"]
-    if head.get("dcn_head", False):
-        raise NotImplementedError("tdal_torch: the deformable head is not ported yet")
     neck = cfg_model.get("neck", {})
     reader = cfg_model["reader"]
     common = dict(
@@ -94,6 +101,7 @@ def build_detector(cfg_model: dict, voxel_cfg: VoxelConfig, device=None, seed: i
         rpn_us_strides=tuple(neck.get("us_layer_strides", (1, 2, 4))),
         rpn_us_filters=tuple(neck.get("us_num_filters", (128, 128, 128))),
         with_velocity="vel" in head.get("common_heads", {}),
+        dcn_head=bool(head.get("dcn_head", False)),
         dtype=dtype,
     )
     if cfg_model["type"] == "PointPillars":

@@ -4,13 +4,13 @@ Port of ``tdal/models/center_head.py`` (``SepHead`` :28-223, ``CenterHead`` :226
 ``_gather_feat``, ``fast_focal_loss``, ``reg_loss``, ``center_head_loss`` :290-370,
 ``decode_preds``, ``post_process_task``, ``predict`` :378-473).
 
-``SepHead`` fuses its branches as tdal does: the first conv is one dense
-``FusedConvBN`` over every branch (``branch_convbn0``; in training its input side
-applies the shared conv's normalise + ReLU inside the K3 kernel), the final conv is
-block-diagonal (``final_conv_weight`` OIHW, ``final_conv_bias``; the mask is applied
-to the weight, so its gradient outside the blocks is zero), run by cuDNN as tdal
-leaves it to XLA. Head BatchNorms are the reference's default ``BatchNorm2d``: eps
-1e-5, momentum 0.1.
+``SepHead`` fuses its branches as tdal does: at the configs' depth of two, the first
+conv is one dense ``FusedConvBN`` over every branch (``branch_convbn0``; in training
+its input side applies the shared conv's normalise + ReLU inside the K3 kernel) and
+the final conv is block-diagonal (``final_conv_weight`` OIHW, ``final_conv_bias``),
+run by cuDNN as tdal leaves it to XLA; other depths as ``SepHead`` says. With
+``dcn_head`` the tasks are ``tdal_torch.models.dcn.DCNSepHead``. Head BatchNorms are
+the reference's default ``BatchNorm2d``: eps 1e-5, momentum 0.1.
 
 Under an active data-parallel mesh the losses' normalizers (the focal loss's positive
 count, the reg loss's mask sum) are global sums, taken with no gradient, so each rank's
@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tdal_torch.core.nms import circle_nms, rotated_nms
-from tdal_torch.models.layers import FusedConvBN, conv_nhwc
+from tdal_torch.models.layers import BatchNorm, FusedConvBN, conv_nhwc
 from tdal_torch.parallel.mesh import all_reduce_sum
 
 _HEAD_BN = dict(momentum=0.1, eps=1e-5)
@@ -34,38 +34,111 @@ COMMON_HEADS = {"reg": (2, 2), "height": (1, 2), "dim": (3, 2), "rot": (2, 2)}
 
 
 class SepHead(nn.Module):
-    """Per-output-name branches of two convs each, fused across branches.
-    heads: {name: (out_ch, 2)}."""
+    """Separate conv branches per output name. heads: {name: (out_ch, num_conv)}.
+
+    Where there are several branches of one depth D they are fused as tdal fuses them
+    (center_head.py:142-192): every branch reads the same input, so the first conv is
+    one dense ``FusedConvBN`` over all of them (``branch_convbn0``); each deeper conv
+    is block-diagonal (``branch_conv{d}_weight`` / ``_bias``, a masked cuDNN conv, then
+    ``branch_bn{d}`` and ReLU); the final conv is block-diagonal too
+    (``final_conv_weight`` / ``_bias``), or at D = 1 one dense conv (``final_conv``).
+    Branches of unequal depths, or a single branch, are independent
+    (``branches[i].convs`` / ``.bns``). A masked weight is multiplied by its mask, so
+    its gradient outside the blocks is zero. ``pre`` (the shared conv's normalise +
+    ReLU) goes into ``branch_convbn0``'s kernel where there is one, and is applied to
+    the input otherwise. Every conv is 3x3 (tdal's ``final_kernel``, which no caller
+    sets otherwise)."""
 
     def __init__(self, in_channels: int, heads: dict, head_conv: int = 64,
                  final_kernel: int = 3, init_bias: float = -2.19, dtype=torch.float32):
         super().__init__()
         self.names = list(heads)
-        if {heads[n][1] for n in self.names} != {2} or final_kernel != 3:
-            raise ValueError("tdal_torch SepHead takes two 3x3 convs per branch (the "
-                             "configs' heads); other depths are not ported yet")
         self.outs = [heads[n][0] for n in self.names]
+        depths = [heads[n][1] for n in self.names]
+        bias_vals = [init_bias if n == "hm" else 0.0 for n in self.names]
+        if final_kernel != 3:
+            raise ValueError("tdal_torch SepHead takes a 3x3 final kernel (every config's)")
         self.dtype = dtype
         g = len(self.names)
-        self.branch_convbn0 = FusedConvBN(in_channels, head_conv * g, use_bias=True,
-                                          dtype=dtype, **_HEAD_BN)
-        # final block-diagonal conv: branch i maps its head_conv slice to its outputs
-        cin, cout = head_conv * g, sum(self.outs)
-        mask = torch.zeros(cout, cin, 3, 3)
-        co = 0
-        for i, c in enumerate(self.outs):
-            mask[co : co + c, i * head_conv : (i + 1) * head_conv] = 1.0
-            co += c
-        self.final_conv_weight = nn.Parameter(torch.zeros(cout, cin, 3, 3))
-        self.final_conv_bias = nn.Parameter(torch.cat([
-            torch.full((c,), init_bias if n == "hm" else 0.0)
-            for n, c in zip(self.names, self.outs)]))
-        self.register_buffer("final_conv_mask", mask, persistent=False)
+        self.fused = g > 1 and len(set(depths)) == 1
+        if not self.fused:
+            self.branches = nn.ModuleList()
+            for (c, depth), bias in zip((heads[n] for n in self.names), bias_vals):
+                branch = nn.Module()
+                widths = [in_channels] + [head_conv] * (depth - 1)
+                branch.convs = nn.ModuleList(
+                    _biased_conv(a, b, bias if i == depth - 1 else 0.0)
+                    for i, (a, b) in enumerate(zip(widths, widths[1:] + [c])))
+                branch.bns = nn.ModuleList(BatchNorm(head_conv, dtype=dtype, **_HEAD_BN)
+                                           for _ in range(depth - 1))
+                self.branches.append(branch)
+            return
+        self.depth = depths[0]
+        hc = head_conv
+        if self.depth > 1:
+            self.branch_convbn0 = FusedConvBN(in_channels, hc * g, use_bias=True,
+                                              dtype=dtype, **_HEAD_BN)
+        for d in range(1, self.depth - 1):
+            self._masked(f"branch_conv{d}", [hc] * g, [hc] * g, [0.0] * g)
+            setattr(self, f"branch_bn{d}", BatchNorm(hc * g, dtype=dtype, **_HEAD_BN))
+        if self.depth == 1:
+            self.final_conv = _biased_conv(in_channels, sum(self.outs), torch.cat([
+                torch.full((c,), v) for v, c in zip(bias_vals, self.outs)]))
+        else:
+            self._masked("final_conv", [hc] * g, self.outs, bias_vals)
+
+    def _masked(self, name, cin_per, cout_per, bias_vals):
+        """A block-diagonal 3x3 conv: branch i maps its ``cin_per[i]`` input slice to
+        its ``cout_per[i]`` output slice (``{name}_weight`` OIHW, ``{name}_bias``, the
+        ``{name}_mask`` buffer)."""
+        mask = torch.zeros(sum(cout_per), sum(cin_per), 3, 3)
+        ci = co = 0
+        for a, c in zip(cin_per, cout_per):
+            mask[co : co + c, ci : ci + a] = 1.0
+            ci, co = ci + a, co + c
+        setattr(self, f"{name}_weight", nn.Parameter(torch.zeros(mask.shape)))
+        setattr(self, f"{name}_bias", nn.Parameter(torch.cat([
+            torch.full((c,), v) for v, c in zip(bias_vals, cout_per)])))
+        self.register_buffer(f"{name}_mask", mask, persistent=False)
+
+    def masked_convs(self):
+        """The names of the block-diagonal convs."""
+        if not self.fused:
+            return []
+        return [f"branch_conv{d}" for d in range(1, self.depth - 1)] + (
+            ["final_conv"] if self.depth > 1 else [])
+
+    def _conv(self, h, weight, bias):
+        return conv_nhwc(h, weight, padding=1, dtype=self.dtype) + bias.to(self.dtype)
+
+    def _apply_masked(self, h, name):
+        w = getattr(self, f"{name}_weight") * getattr(self, f"{name}_mask")
+        return self._conv(h, w, getattr(self, f"{name}_bias"))
+
+    def _materialise(self, x, pre):
+        dt = self.dtype
+        return torch.relu(x.to(dt) * pre[0].to(dt) + pre[1].to(dt))
 
     def forward(self, x, pre=None):
-        h = self.branch_convbn0(x, pre=pre)
-        w = self.final_conv_weight * self.final_conv_mask
-        y = conv_nhwc(h, w, padding=1, dtype=self.dtype) + self.final_conv_bias.to(self.dtype)
+        if not self.fused:
+            if pre is not None:
+                x = self._materialise(x, pre)
+            out = {}
+            for name, branch in zip(self.names, self.branches):
+                h = x
+                for conv, bn in zip(branch.convs, branch.bns):
+                    h = torch.relu(bn(self._conv(h, conv.weight, conv.bias)))
+                out[name] = self._conv(h, branch.convs[-1].weight, branch.convs[-1].bias)
+            return out
+        if self.depth == 1:
+            h = x if pre is None else self._materialise(x, pre)
+            y = self._conv(h, self.final_conv.weight, self.final_conv.bias)
+        else:
+            h = self.branch_convbn0(x, pre=pre)
+            for d in range(1, self.depth - 1):
+                h = torch.relu(getattr(self, f"branch_bn{d}")(
+                    self._apply_masked(h, f"branch_conv{d}")))
+            y = self._apply_masked(h, "final_conv")
         out, co = {}, 0
         for name, c in zip(self.names, self.outs):
             out[name] = y[..., co : co + c]
@@ -73,26 +146,48 @@ class SepHead(nn.Module):
         return out
 
 
+def _biased_conv(cin: int, cout: int, bias) -> nn.Conv2d:
+    """A 3x3 conv whose bias starts at ``bias`` (a number or a (cout,) tensor); the
+    builder draws its weight."""
+    conv = nn.Conv2d(cin, cout, 3, padding=1)
+    with torch.no_grad():
+        conv.bias.copy_(torch.as_tensor(bias, dtype=torch.float32).expand(cout))
+    return conv
+
+
 class CenterHead(nn.Module):
     """x (B, H, W, Cin) -> list of per-task dicts of NHWC maps. The shared conv
     (``shared``, a FusedConvBN with a conv bias) hands its normalise + ReLU to every
-    task's first branch conv (``emit_raw`` chain)."""
+    task's first branch conv (``emit_raw`` chain). With ``dcn_head`` every task is a
+    ``DCNSepHead`` on the shared conv's materialised output (the deformable sampling
+    reads the whole canvas)."""
 
     def __init__(self, in_channels: int, tasks: Sequence[dict], common_heads: dict = None,
                  share_conv_channel: int = 64, num_hm_conv: int = 2,
-                 init_bias: float = -2.19, dtype=torch.float32):
+                 init_bias: float = -2.19, dcn_head: bool = False, dtype=torch.float32):
+        from tdal_torch.models.dcn import DCNSepHead
+
         super().__init__()
         common = dict(common_heads or COMMON_HEADS)
+        self.dcn_head = dcn_head
         self.shared = FusedConvBN(in_channels, share_conv_channel, use_bias=True,
                                   dtype=dtype, **_HEAD_BN)
         self.tasks = nn.ModuleList()
         for task in tasks:
+            if dcn_head:
+                self.tasks.append(DCNSepHead(share_conv_channel, dict(common),
+                                             len(task["class_names"]), init_bias=init_bias,
+                                             dtype=dtype))
+                continue
             heads = dict(common)
             heads["hm"] = (len(task["class_names"]), num_hm_conv)
             self.tasks.append(SepHead(share_conv_channel, heads, final_kernel=3,
                                       init_bias=init_bias, dtype=dtype))
 
     def forward(self, x):
+        if self.dcn_head:
+            x = self.shared(x)
+            return [task(x) for task in self.tasks]
         x, pre = self.shared(x, emit_raw=True)
         return [task(x, pre=pre) for task in self.tasks]
 
@@ -134,10 +229,14 @@ def reg_loss(output, mask, ind, target):
 def center_head_loss(preds_dicts, targets, code_weights, weight: float = 2.0,
                      has_vel: bool = False):
     """Total CenterHead loss over tasks and its logs. targets: per-task lists
-    {hm, anno_box, ind, mask, cat} of tensors (center_head.py:250-291)."""
+    {hm, anno_box, ind, mask, cat} of tensors (center_head.py:250-291). The focal loss
+    runs in f32 whatever the head's dtype (the box loss is f32 already: its targets
+    are)."""
     total, logs = 0.0, {}
     for task_id, preds in enumerate(preds_dicts):
-        hm = torch.clamp(torch.sigmoid(preds["hm"]), 1e-4, 1 - 1e-4)
+        # in f32 for a bf16 head too: tdal clips a bf16 sigmoid at 1 - 1e-4, which
+        # rounds to 1 in bf16, so any heatmap logit above about 5.5 gives log(0)
+        hm = torch.clamp(torch.sigmoid(preds["hm"].float()), 1e-4, 1 - 1e-4)
         hm_loss = fast_focal_loss(
             hm, targets["hm"][task_id], targets["ind"][task_id],
             targets["mask"][task_id].float(), targets["cat"][task_id],

@@ -9,8 +9,9 @@ voxelize on the device.
   (the Waymo grid: 40 x 1504 x 1504), else the dense one (``scn``), as tdal picks.
 
 Train or eval follows ``module.training``; ``return_feature=True`` also returns the
-RPN's BEV feature map, which the two-stage detector samples. BEV spatial sharding and
-the deformable head (``bev_sharding``, ``dcn_head``) are not ported yet.
+RPN's BEV feature map, which the two-stage detector samples. ``dcn_head`` swaps each
+task's SepHead for a ``DCNSepHead`` (``tdal_torch.models.dcn``). BEV spatial sharding
+(``bev_sharding``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -37,7 +38,8 @@ class PointPillars(nn.Module):
                  rpn_ds_filters: Sequence[int] = (64, 128, 256),
                  rpn_us_strides: Sequence[int] = (1, 2, 4),
                  rpn_us_filters: Sequence[int] = (128, 128, 128),
-                 with_velocity: bool = False, dtype=torch.float32):
+                 with_velocity: bool = False, dcn_head: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         self.voxel_cfg = voxel_cfg
         self.tasks = [dict(t) for t in tasks]
@@ -51,7 +53,8 @@ class PointPillars(nn.Module):
         common = dict(COMMON_HEADS)
         if with_velocity:
             common["vel"] = (2, 2)
-        self.head = CenterHead(self.rpn.out_channels, self.tasks, common, dtype=dtype)
+        self.head = CenterHead(self.rpn.out_channels, self.tasks, common, dcn_head=dcn_head,
+                               dtype=dtype)
 
     @property
     def out_size_factor(self) -> int:
@@ -81,7 +84,7 @@ class VoxelNet(nn.Module):
                  rpn_us_strides: Sequence[int] = (1, 2),
                  rpn_us_filters: Sequence[int] = (256, 256),
                  with_velocity: bool = False, sparse_middle: bool = None,
-                 dtype=torch.float32):
+                 dcn_head: bool = False, dtype=torch.float32):
         super().__init__()
         self.voxel_cfg = voxel_cfg
         self.tasks = [dict(t) for t in tasks]
@@ -98,7 +101,8 @@ class VoxelNet(nn.Module):
         common = dict(COMMON_HEADS)
         if with_velocity:
             common["vel"] = (2, 2)
-        self.head = CenterHead(self.rpn.out_channels, self.tasks, common, dtype=dtype)
+        self.head = CenterHead(self.rpn.out_channels, self.tasks, common, dcn_head=dcn_head,
+                               dtype=dtype)
 
     @property
     def out_size_factor(self) -> int:

@@ -1,8 +1,12 @@
-"""The labelers' step decay, the detector's OneCycle schedule and their AdamW.
+"""The labelers' step decay, the detector's OneCycle schedule, the torchie LR
+policies and their AdamW.
 
-Port of ``tdal/runtime/schedules.py`` (``labeler_step_decay`` :21-38, ``one_cycle``
-:41-79 and the optax chain of ``adam_with_schedule`` :166-193). The other torchie LR
-policies are not ported yet.
+Port of ``tdal/runtime/schedules.py``: ``labeler_step_decay`` (:21-38), ``one_cycle``
+(:41-79), the torchie ``LrUpdaterHook`` policies ``fixed_lr``, ``step_lr``,
+``exp_lr``, ``poly_lr``, ``inv_lr``, ``cosine_lr`` and the ``with_warmup`` wrapper
+(:82-164), and the optax chain of ``adam_with_schedule`` (:166-193). Every schedule is
+a function of the number of updates already taken. Only ``one_cycle`` and the step
+decay drive the port's trainers, as in tdal.
 """
 
 from __future__ import annotations
@@ -54,6 +58,79 @@ def one_cycle(lr_max: float, total_steps: int, moms=(0.95, 0.85), div_factor: fl
         return _cos(moms[0], moms[1], pct1) if first else _cos(moms[1], moms[0], pct2)
 
     return lr_schedule, momentum_schedule
+
+
+def fixed_lr(base_lr: float):
+    """torchie FixedLrUpdaterHook (lr_updater.py:85-90)."""
+    return lambda step: base_lr
+
+
+def step_lr(base_lr: float, step_size, gamma: float = 0.1, steps_per_epoch: int = 1):
+    """torchie StepLrUpdaterHook (lr_updater.py:93-119): base_lr * gamma^k, k the
+    number of ``step_size`` periods (an int, in epochs) or of milestones (a list of
+    epochs) passed; ``steps_per_epoch=1`` is by_epoch=False."""
+
+    def schedule(step):
+        progress = step // steps_per_epoch
+        if isinstance(step_size, int):
+            exp = progress // step_size
+        else:
+            exp = sum(progress >= m for m in step_size)
+        return base_lr * gamma**exp
+
+    return schedule
+
+
+def exp_lr(base_lr: float, gamma: float, steps_per_epoch: int = 1):
+    """torchie ExpLrUpdaterHook (lr_updater.py:122-129)."""
+    return lambda step: base_lr * gamma ** (step // steps_per_epoch)
+
+
+def poly_lr(base_lr: float, total_steps: int, power: float = 1.0, min_lr: float = 0.0):
+    """torchie PolyLrUpdaterHook (lr_updater.py:132-146)."""
+
+    def schedule(step):
+        coeff = (1.0 - min(step, total_steps) / total_steps) ** power
+        return (base_lr - min_lr) * coeff + min_lr
+
+    return schedule
+
+
+def inv_lr(base_lr: float, gamma: float, power: float = 1.0, steps_per_epoch: int = 1):
+    """torchie InvLrUpdaterHook (lr_updater.py:149-157)."""
+    return lambda step: base_lr * (1.0 + gamma * (step // steps_per_epoch)) ** (-power)
+
+
+def cosine_lr(base_lr: float, total_steps: int, target_lr: float = 0.0):
+    """torchie CosineLrUpdaterHook (lr_updater.py:160-175)."""
+
+    def schedule(step):
+        pct = min(step, total_steps) / total_steps
+        return target_lr + 0.5 * (base_lr - target_lr) * (1.0 + math.cos(math.pi * pct))
+
+    return schedule
+
+
+def with_warmup(schedule, warmup_steps: int, warmup_ratio: float = 1.0 / 3.0,
+                mode: str = "linear"):
+    """torchie's warmup (trainer/hooks/lr_updater.py:36-55): below ``warmup_steps`` the
+    schedule's value times a ratio that is constant, or ramps linearly or
+    exponentially from ``warmup_ratio`` to 1."""
+    if mode not in ("constant", "linear", "exp"):
+        raise ValueError(mode)
+
+    def warmed(step):
+        base = schedule(step)
+        if step >= warmup_steps:
+            return base
+        if mode == "constant":
+            return base * warmup_ratio
+        pct = step / max(warmup_steps, 1)
+        if mode == "linear":
+            return base * (1.0 - (1.0 - pct) * (1.0 - warmup_ratio))
+        return base * warmup_ratio ** (1.0 - pct)
+
+    return warmed
 
 
 class AdamWSchedule(torch.optim.Optimizer):

@@ -8,7 +8,9 @@ arguments.
 - ``frame_cache --info_path I [--no_sweeps]``: a ``.tdc`` point cache next to every
   frame pickle of ``I``;
 - ``waymo_convert``: tfrecords -> per-frame pickles, which needs the Waymo devkit;
-- ``nuscenes_data_prep`` is refused: nuScenes is not ported.
+- ``nuscenes_data_prep --root_path R [--version V] [--nsweeps N] [--no_filter_zero]``:
+  the nuScenes train / val infos (``tdal_torch.data.nuscenes.create_nuscenes_infos``),
+  which needs the nuScenes devkit.
 
 Host work only (numpy), so no ``--device``; the files equal ``tools/create_data.py``'s.
 """
@@ -16,7 +18,6 @@ Host work only (numpy), so no ``--device``; the files equal ``tools/create_data.
 import argparse
 
 from tdal_torch.data.waymo_schema import load_pickle
-from tdal_torch.tools._common import refuse
 
 
 def waymo_data_prep(root_path, split: str = "train", nsweeps: int = 1, gt_database: bool = True):
@@ -48,7 +49,7 @@ def main():
     fc.add_argument("--info_path", required=True)
     fc.add_argument("--no_sweeps", action="store_true")
 
-    n = sub.add_parser("nuscenes_data_prep", help="build nuScenes infos (not ported)")
+    n = sub.add_parser("nuscenes_data_prep", help="build nuScenes infos (needs devkit)")
     n.add_argument("--root_path", required=True)
     n.add_argument("--version", default="v1.0-trainval")
     n.add_argument("--nsweeps", type=int, default=10)
@@ -68,7 +69,10 @@ def main():
         n = build_cache(load_pickle(args.info_path), with_sweeps=not args.no_sweeps)
         print(f"wrote {n} .tdc files")
     elif args.cmd == "nuscenes_data_prep":
-        refuse("nuScenes data preparation")
+        from tdal_torch.data.nuscenes import create_nuscenes_infos
+
+        create_nuscenes_infos(args.root_path, version=args.version, nsweeps=args.nsweeps,
+                              filter_zero=not args.no_filter_zero)
 
 
 if __name__ == "__main__":

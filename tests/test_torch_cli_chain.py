@@ -261,7 +261,9 @@ def test_create_data_writes_tdals_files(tmp_path):
     """``create_data waymo_data_prep`` on a Waymo-layout root writes the infos pickle, the
     dbinfos pickle and the ``.bin`` crops that ``tools/create_data.py`` writes there, byte
     for byte; with ``--no_gt_database`` the infos only; ``frame_cache`` writes one
-    ``.tdc`` a frame; nuScenes is refused and ``waymo_convert`` needs the devkit."""
+    ``.tdc`` a frame; ``nuscenes_data_prep`` raises tdal's ``ImportError`` without the
+    nuScenes devkit, as ``tools/create_data.py`` does, and ``waymo_convert`` needs the
+    Waymo devkit."""
     from tdal.data.synthetic import SyntheticScene
 
     for i in range(2):
@@ -294,8 +296,10 @@ def test_create_data_writes_tdals_files(tmp_path):
     _run_port("create_data", ["frame_cache", "--info_path",
                               tmp_path / "infos_train_02sweeps_filter_zero_gt.pkl"])
     assert len(list(tmp_path.rglob("*.tdc"))) == 10
-    with pytest.raises(NotImplementedError, match="nuScenes"):
-        _run_port("create_data", ["nuscenes_data_prep", "--root_path", tmp_path])
+    for side, run in (("tdal", _run_tdal), ("port", _run_port)):  # no nuScenes devkit here
+        with pytest.raises(ImportError, match="nuscenes-devkit"):
+            run("create_data.py" if side == "tdal" else "create_data",
+                ["nuscenes_data_prep", "--root_path", tmp_path])
     with pytest.raises(ImportError, match="waymo_open_dataset"):
         _run_port("create_data", ["waymo_convert", "--records", "a.tfrecord", "--out_root",
                                   tmp_path])

@@ -202,6 +202,33 @@ def test_config_and_one_cycle_match_tdal():
         assert mom(step) == pytest.approx(float(jmom(step)), rel=0, abs=0.95 * 1e-6)
 
 
+# the torchie LR policies (tdal/runtime/schedules.py:82-164), built the same way from
+# either package's module
+LR_POLICIES = {
+    "fixed": lambda m: m.fixed_lr(1e-3),
+    "step, every 30 epochs": lambda m: m.step_lr(1e-3, 30, 0.5, steps_per_epoch=2),
+    "step, milestones": lambda m: m.step_lr(1e-3, [20, 45, 80], 0.1),
+    "exp": lambda m: m.exp_lr(1e-3, 0.98, steps_per_epoch=3),
+    "poly": lambda m: m.poly_lr(1e-3, 150, power=0.9, min_lr=1e-5),
+    "inv": lambda m: m.inv_lr(1e-3, 0.05, power=0.75, steps_per_epoch=2),
+    "cosine": lambda m: m.cosine_lr(1e-3, 150, target_lr=1e-5),
+    "warmup constant": lambda m: m.with_warmup(m.cosine_lr(1e-3, 150), 40, 0.25, "constant"),
+    "warmup linear": lambda m: m.with_warmup(m.poly_lr(1e-3, 150), 40, 0.25, "linear"),
+    "warmup exp": lambda m: m.with_warmup(m.step_lr(1e-3, [60, 120]), 40, 0.25, "exp"),
+}
+
+
+@pytest.mark.parametrize("policy", list(LR_POLICIES))
+def test_lr_policies_match_tdal(policy):
+    """Every update count of 200, against tdal's f32 values (to f32 rounding: 1e-6
+    relative, or 1e-9 absolute near zero)."""
+    lr, jlr = LR_POLICIES[policy](schedules), LR_POLICIES[policy](jsched)
+    for step in range(200):
+        assert lr(step) == pytest.approx(float(jlr(step)), rel=1e-6, abs=1e-9), step
+    with pytest.raises(ValueError):
+        schedules.with_warmup(lr, 10, mode="cubic")(0)
+
+
 @pytest.mark.parametrize("clip", [None, 1.0])
 def test_adamw_schedule_matches_the_optax_chain(clip):
     """Identical gradients into both optimizers for 4 steps: the global-norm clip
@@ -319,6 +346,30 @@ def test_center_head_loss_matches_tdal():
     for k in logs:
         assert float(logs[k]) == pytest.approx(float(ref_logs[k]), rel=1e-5), k
     assert float(total) == pytest.approx(float(ref_total), rel=1e-5)
+
+
+def test_bf16_heads_focal_loss_runs_in_f32():
+    """A bf16 head's focal loss is the f32 focal loss of its (exactly widened) heatmap,
+    finite where a heatmap logit saturates a bf16 sigmoid; tdal's bf16 loss is inf
+    there (its clip at 1 - 1e-4 rounds to 1 in bf16), a fault of the reference that the
+    port leaves out. The box loss keeps tdal's bf16 arithmetic."""
+    rng = np.random.default_rng(7)
+    batch = _batch(2, seed=7)
+    preds = {k: rng.normal(size=(2, 32, 32, c)).astype(np.float32)
+             for k, c in (("reg", 2), ("height", 1), ("dim", 3), ("rot", 2), ("hm", 3))}
+    preds["hm"][0, 5, 5, 0] = 8.0  # sigmoid(8) is 1 in bf16
+    bf16 = {k: torch.from_numpy(v).bfloat16() for k, v in preds.items()}
+    tt = {k: [torch.from_numpy(x) for x in batch[k]] for k in TARGET_KEYS}
+    total, logs = center_head_loss([bf16], tt, CODE_WEIGHTS, 2.0)
+    _, widened = center_head_loss([{k: v.float() for k, v in bf16.items()}], tt,
+                                  CODE_WEIGHTS, 2.0)
+    assert torch.isfinite(total)
+    assert float(logs["hm_loss_task0"]) == float(widened["hm_loss_task0"])
+    jt = _jbatch(batch)
+    ref, _ = jloss([{k: jnp.asarray(v.float().numpy()).astype(jnp.bfloat16)
+                     for k, v in bf16.items()}], {k: jt[k] for k in TARGET_KEYS},
+                   CODE_WEIGHTS, 2.0)
+    assert not np.isfinite(float(ref))
 
 
 # ---------------------------------------------------------------------------

@@ -101,10 +101,16 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_card, tmp_path):
         track_extraction.create_pd_detection({}, {}, tmp_path, tracking=True)
 
 
+# the two-sweep velocity config with the deformable head switched on (no shipped config
+# sets ``dcn_head``)
+DCN_CONFIG = "configs/waymo/voxelnet/waymo_centerpoint_voxelnet_two_sweeps_3x_with_velo.py"
+
+
 @pytest.mark.parametrize("config", [
     "configs/waymo/voxelnet/waymo_centerpoint_voxelnet_3x.py",
     "configs/waymo/voxelnet/two_stage/"
-    "waymo_centerpoint_voxelnet_two_stage_bev_5point_ft_6epoch_freeze.py"])
+    "waymo_centerpoint_voxelnet_two_stage_bev_5point_ft_6epoch_freeze.py",
+    DCN_CONFIG])
 def test_voxelnet_and_two_stage_builders_refuse_the_cpu_unless_asked(no_card, config):
     from tdal_torch.models.builder import (
         build_detector, build_test_cfg, build_two_stage_engine, build_voxel_config,
@@ -119,6 +125,11 @@ def test_voxelnet_and_two_stage_builders_refuse_the_cpu_unless_asked(no_card, co
         with pytest.raises(RuntimeError, match="CUDA"):
             build_two_stage_engine(cfg.model, vox, test_cfg)
     else:
+        model = dict(cfg.model, bbox_head=dict(cfg.model["bbox_head"],
+                                               dcn_head=config == DCN_CONFIG))
         with pytest.raises(RuntimeError, match="CUDA"):
-            build_detector(cfg.model, vox)
+            build_detector(model, vox)
+        if config == DCN_CONFIG:
+            det = build_detector(model, vox, device="cpu")
+            assert det.head.dcn_head and next(det.parameters()).device.type == "cpu"
 

@@ -577,6 +577,73 @@ def test_voxelnet_train_step_on_card_runs_the_kernels(cuda):
     assert np.isfinite(losses[0]) and losses[0] == pytest.approx(losses[1], rel=1e-4)
 
 
+@pytest.mark.gpu
+def test_dcn_voxelnet_train_step_on_card_runs_the_kernels(cuda):
+    """One train step of a narrow deformable-head VoxelNet with the velocity head (the
+    sparse backbone on a (8, 64, 64) grid, two sweeps' six point features, the offset
+    convs' biases off zero) on the card: every stride-1 3x3 conv is one K3 forward, one
+    K5 and one dgrad (K7 where chained; K4 at the stride-1 stage's entry, the strided
+    stage's first layer, the shared conv and the regression SepHead's first conv, which
+    the deformable head feeds unchained), and the loss and the deformable head's
+    gradients match the same step on a CPU copy."""
+    import copy
+
+    import numpy as np
+
+    from tdal_torch.core.voxel import VoxelConfig
+    from tdal_torch.models.builder import init_detector
+    from tdal_torch.models.center_head import center_head_loss
+    from tdal_torch.models.dcn import FeatureAdaption
+    from tdal_torch.models.detectors import VoxelNet
+    from tdal_torch.models.layers import FusedConvBN
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    vox = VoxelConfig((-8.0, -8.0, -2.0, 8.0, 8.0, 4.0), (0.25, 0.25, 0.75), 5, 4000)
+    tasks = [dict(num_class=3, class_names=("VEHICLE", "PEDESTRIAN", "CYCLIST"))]
+    model = init_detector(VoxelNet(vox, tasks, num_input_features=6, rpn_layer_nums=(2, 2),
+                                   rpn_ds_filters=(32, 64), rpn_us_filters=(32, 32),
+                                   with_velocity=True, sparse_middle=True, dcn_head=True),
+                          torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, FeatureAdaption):
+                m.offset.bias.uniform_(-0.3, 0.3, generator=gen)
+    sites = sum(isinstance(m, FusedConvBN) for m in model.modules())
+    chained = sites - 4
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(-8, 8, (2, 3000, 6)).astype(np.float32)
+    pts[..., 2] = rng.uniform(-1.9, 3.9, (2, 3000))
+    pts[..., 5] = np.repeat([0.0, 0.1], 1500)
+    pts = torch.from_numpy(pts)
+    hm = torch.zeros(2, 8, 8, 3)
+    hm[:, 2:4, 3:5, 0] = 0.5
+    tg = {"hm": [hm], "anno_box": [torch.randn(2, 4, 10)],
+          "ind": [torch.randint(0, 64, (2, 4))], "mask": [torch.ones(2, 4, dtype=torch.uint8)],
+          "cat": [torch.zeros(2, 4, dtype=torch.long)]}
+    losses, grads = [], []
+    for dev in (cuda, torch.device("cpu")):
+        m = copy.deepcopy(model).to(dev).train()
+        before = dict(cv.launches)
+        total, _ = center_head_loss(m(pts.to(dev)),
+                                    {k: [v.to(dev) for v in vs] for k, vs in tg.items()},
+                                    [1.0] * 10, has_vel=True)
+        total.backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert {k: cv.launches[k] - before[k] for k in before} == {
+                "conv3x3_fwd_stats": sites, "conv3x3_fwd": sites - chained,
+                "conv3x3_dgrad_act": chained, "conv3x3_wgrad": sites}
+        losses.append(float(total.detach()))
+        grads.append({n: p.grad.detach().cpu() for n, p in m.named_parameters()
+                      if "adapt" in n})
+    assert np.isfinite(losses[0]) and losses[0] == pytest.approx(losses[1], rel=1e-4)
+    for n, g in grads[1].items():
+        err = float((grads[0][n] - g).abs().max())
+        assert err <= 1e-3 * max(1.0, float(g.abs().max())), n
+
+
 def _fused_chain_step(mesh, a, b, x, w) -> dict:
     """One forward and backward of the chain ``b(a(x))`` (a emits its raw output and its
     BN + ReLU as ``pre``) on this rank's rows, loss ``partial_mean(out * w)``: the
