@@ -171,11 +171,25 @@ nothing of JAX or of ``tdal``, and exits non-zero on any failure. Phases:
    config's test settings over 8 frames after a warm pass (frames/s with the host data,
    forward and decode + NMS apart, peak memory) and one frame in f32 against a CPU copy
    as phase 7 holds its batch;
-13. one line ``{"kernels": [...]}`` (K1, K2, K3, K4, K5/K6, K7, and K4 again as the
+13. a checkpoint that ``tdal``'s ``CheckpointManager`` wrote (the committed fixture
+   ``tests/data/tdal_ckpt``: a narrow PointPillars, two steps, its legacy layout and a
+   flat ``.npz``; ``make_fixture.py`` there says how it was made), launching no hand
+   kernel (a detector's eval forward is cuDNN): (a) in a fresh process in which jax,
+   orbax, tensorstore, zstandard, zarr and numcodecs cannot be imported, every variant
+   through ``load_checkpoint_uri`` (the directory's latest and best steps, a
+   ``file://`` tarball made here, the ``.npz``, the legacy layout through
+   ``migrate_legacy_conv_params``), every leaf bit-equal to tdal's, with the bytes,
+   seconds and MB/s; (b) ``python -m tdal_torch.tools.dist_test --checkpoint`` on the
+   directory over the fixture config's two synthetic frames on the card (TF32 off), the
+   same weights' head maps within ``MAP_TOL`` of tdal's recorded maps, the kept
+   candidates equal to those of tdal's maps but for knife edges (counted, as phase 7
+   holds its batch), and the CLI's detections within ``MAP_TOL`` of tdal's
+   ``run_inference`` output in every frame without a knife edge;
+14. one line ``{"kernels": [...]}`` (K1, K2, K3, K4, K5/K6, K7, and K4 again as the
    benchmark prototype's function), each kernel's ``launches`` from phases 8, 9, 10(b),
    11 and 12;
-14. the last line ``{"ok": true, "device": {...}}``. The seconds each phase took are
-   printed before the ``kernels`` line.
+15. the last line ``{"ok": true, "device": {...}}``. The seconds each phase took, and
+   the whole script's, are printed before the ``kernels`` line.
 
 ``--noise-probe STATES`` builds and then runs only ``noise_probe``: on the card, how
 often phase 6's comparison would fail a step that differs by rounding alone.
@@ -186,7 +200,8 @@ from phase 6's snapshot (its first epoch alone); ``--pp-only`` builds and then r
 only phase 6;
 ``--data-prep-only`` builds and then runs only phase 11, from a fresh detector;
 ``--dcn-only`` builds and then runs only phase 12, and prints its seconds and peak
-memory.
+memory; ``--import-only`` runs only phase 13 (without the build, since it launches no
+hand kernel) and prints its seconds.
 """
 
 from __future__ import annotations
@@ -3695,6 +3710,211 @@ def noise_probe(device, n_states: int) -> dict:
     return summary
 
 
+# phase 13: a checkpoint that tdal wrote, read without orbax and served on the card
+TDAL_FIXTURE = Path(__file__).resolve().parent / "tests" / "data" / "tdal_ckpt"
+# the packages the port's reader replaces: the reading child cannot import them
+READER_BLOCKED = ("jax", "orbax", "tensorstore", "zstandard", "zarr", "numcodecs")
+
+
+def _flat_tree(tree, prefix="") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _same_leaves(tree, expected: dict, prefix: str, what: str) -> int:
+    """Every leaf of ``tree`` bit for bit equal to ``expected``'s under ``prefix``, and
+    no leaf missing: the number of leaves."""
+    got = _flat_tree(tree)
+    want = {k[len(prefix):]: v for k, v in expected.items() if k.startswith(prefix)}
+    if got.keys() != want.keys():
+        raise AssertionError(f"{what}: leaves {sorted(got.keys() ^ want.keys())[:6]} differ")
+    for k, v in want.items():
+        g = np.asarray(got[k])
+        if g.dtype != v.dtype or g.shape != v.shape or g.tobytes() != v.tobytes():
+            raise AssertionError(f"{what}: leaf {k} is not bit-equal to tdal's")
+    return len(want)
+
+
+def read_tdal_variants(fixture: Path, tmp: Path) -> dict:
+    """The reading half of phase 13, run in a fresh process (``--tdal-read-child``)
+    where ``READER_BLOCKED`` cannot be imported: every variant of the fixture through
+    ``load_checkpoint_uri`` (the manager directory's latest and, through
+    ``restore_tdal``, its best step; a ``file://`` tarball made here, twice, the second
+    time from the cache; the ``.npz``; the legacy layout through
+    ``migrate_legacy_conv_params``), each leaf bit-equal to ``expected.npz``."""
+    import tarfile
+
+    for name in READER_BLOCKED:
+        sys.modules[name] = None
+    from tdal_torch.runtime.checkpoint import (
+        load_checkpoint_uri, migrate_legacy_conv_params, restore_tdal,
+    )
+
+    expected = dict(np.load(fixture / "expected.npz"))
+
+    def size(path: Path) -> int:
+        return sum(f.stat().st_size for f in path.rglob("*") if f.is_file()) \
+            if path.is_dir() else path.stat().st_size
+
+    tarball = tmp / "ckpt.tar.gz"
+    with tarfile.open(tarball, "w:gz") as tf:
+        tf.add(fixture / "ckpt", arcname="ckpt")
+    step1, step2 = fixture / "ckpt" / "ckpt_00000001", fixture / "ckpt" / "ckpt_00000002"
+    reads = [
+        ("directory, latest step", lambda: load_checkpoint_uri(str(fixture / "ckpt")),
+         "step2/", size(step2)),
+        ("directory, best step", lambda: restore_tdal(fixture / "ckpt", prefer_best=True),
+         "step1/", size(step1)),
+        ("file:// tarball", lambda: load_checkpoint_uri(f"file://{tarball}",
+                                                        cache_dir=tmp / "cache"),
+         "step2/", size(tarball) + size(step2)),
+        ("file:// tarball, cached", lambda: load_checkpoint_uri(f"file://{tarball}",
+                                                                cache_dir=tmp / "cache"),
+         "step2/", size(step2)),
+        (".npz", lambda: load_checkpoint_uri(str(fixture / "tree.npz")), "step2/",
+         size(fixture / "tree.npz")),
+        ("legacy layout, migrated", lambda: (migrate_legacy_conv_params(
+            load_checkpoint_uri(str(fixture / "legacy"))[0]), None), "step2/",
+         size(fixture / "legacy" / "ckpt_00000002")),
+    ]
+    out, nbytes, seconds = {}, 0, 0.0
+    for what, read, prefix, n in reads:
+        t0 = time.perf_counter()
+        tree, _ = read()
+        seconds += time.perf_counter() - t0
+        nbytes += n
+        out[what] = _same_leaves(tree, expected, prefix, what)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in READER_BLOCKED
+                    and sys.modules[m] is not None)
+    if loaded:
+        raise AssertionError(f"the reader loaded {loaded}")
+    return dict(leaves=out, bytes=nbytes, seconds=seconds, mb_per_s=nbytes / seconds / 1e6)
+
+
+def serve_tdal_checkpoint(device, fixture: Path, tmp: Path) -> dict:
+    """The serving half of phase 13: ``dist_test --checkpoint`` on the fixture's
+    manager directory over the two frames of the config's ``fixture_frames`` (made here
+    by ``tdal_torch.data.synthetic``), TF32 off; the same weights' head maps in this
+    process against tdal's recorded maps (within ``MAP_TOL``) and, frame by frame, the
+    kept candidates against those of tdal's maps (equal but for knife edges, counted);
+    then the CLI's detections against tdal's ``run_inference`` output, equal within
+    ``MAP_TOL`` in every frame whose kept sets are equal."""
+    import os
+    import pickle
+
+    from tdal_torch.convert import load_tdal_checkpoint
+    from tdal_torch.data.detection import DetectionDataset
+    from tdal_torch.data.synthetic import make_synthetic_dataset
+    from tdal_torch.models.builder import (
+        build_assigner, build_detector, build_test_cfg, build_voxel_config,
+    )
+    from tdal_torch.models.center_head import decode_preds
+    from tdal_torch.runtime.config import Config
+
+    config = fixture / "pp_narrow.py"
+    cfg = Config.fromfile(str(config))
+    infos, _ = make_synthetic_dataset(tmp / "frames", **cfg.fixture_frames)
+    expected = dict(np.load(fixture / "expected.npz"))
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "tdal_torch.tools.dist_test", str(config),
+           "--work_dir", str(tmp / "serve"), "--checkpoint", str(fixture / "ckpt"),
+           "--info_path", str(tmp / "frames" / "infos.pkl"), "--batch_size", "2"]
+    if device.type == "cpu":
+        cmd += ["--device", "cpu"]
+    res = subprocess.run(cmd, cwd=fixture.parents[2], capture_output=True, text=True,
+                         timeout=300, env=dict(os.environ, NVIDIA_TF32_OVERRIDE="0"))
+    if res.returncode:
+        raise AssertionError(f"dist_test exited {res.returncode}: {res.stderr[-2000:]}")
+    cli_s = time.perf_counter() - t0
+    with open(tmp / "serve" / "prediction.pkl", "rb") as f:
+        preds = pickle.load(f)
+
+    vox = build_voxel_config(cfg.voxel_generator, train=False)
+    model = build_detector(cfg.model, vox, device=device)
+    meta = load_tdal_checkpoint(model, fixture / "ckpt")
+    test_cfg = build_test_cfg(cfg.test_cfg, model, vox)
+    data = cfg.data["val"]
+    ds = DetectionDataset(infos, data["class_names"],
+                          build_assigner(cfg.train_cfg["assigner"], model), vox, mode="val",
+                          max_points=data["max_points"], shuffle_points=False)
+    points = torch.from_numpy(np.stack([ds[i]["points"] for i in range(len(ds))]))
+    with torch.no_grad():
+        maps = model.eval()(points.to(device))
+    worst, counts, unexplained, differing, kept = {}, {}, [], {}, 0
+    for t, task in enumerate(maps):
+        ref = {k[len(f"maps/{t}/"):]: torch.from_numpy(v) for k, v in expected.items()
+               if k.startswith(f"maps/{t}/")}
+        for k, v in ref.items():
+            err = (task[k].cpu() - v).abs() / v.abs().clamp_min(1)
+            worst[k] = max(worst.get(k, 0.0), float(err.max()))
+        bc, hc = decode_preds({k: v.cpu() for k, v in task.items()}, test_cfg)
+        bp, hp = decode_preds(ref, test_cfg)
+        for f in range(bc.shape[0]):
+            kc, _, _ = kept_candidates(bc[f], hc[f], test_cfg)
+            kp, sp, boxes_p = kept_candidates(bp[f], hp[f], test_cfg)
+            c, u = explain_kept_difference(kc, kp, sp, boxes_p, test_cfg)
+            kept += len(kp)
+            differing[f] = differing.get(f, 0) + len(set(kc.tolist()) ^ set(kp.tolist()))
+            for k, v in c.items():
+                counts[k] = counts.get(k, 0) + v
+            unexplained += [(t, f, int(i)) for i in u]
+    bad = [k for k, v in worst.items() if not v <= MAP_TOL]
+    if bad or unexplained:
+        raise AssertionError(f"tdal's checkpoint on the card: maps {bad} beyond {MAP_TOL} "
+                             f"({worst}), kept candidates {unexplained[:10]} unexplained")
+    tokens = [info["token"] for info in infos]
+    if sorted(preds) != sorted(tokens):
+        raise AssertionError(f"dist_test predicted {sorted(preds)}, expected {tokens}")
+    det_err, compared = 0.0, 0
+    for f, token in enumerate(tokens):
+        if differing[f]:
+            continue  # a knife edge of this frame, counted above
+        for k in ("box3d_lidar", "scores", "label_preds"):
+            got, want = np.asarray(preds[token][k]), expected[f"pred/{token}/{k}"]
+            if got.shape != want.shape:
+                raise AssertionError(f"dist_test {token} {k}: shape {got.shape}, tdal's "
+                                     f"{want.shape}")
+            err = np.abs(got.astype(np.float64) - want) / np.maximum(1.0, np.abs(want))
+            det_err = max(det_err, float(err.max(initial=0.0)))
+        compared += 1
+    if not det_err <= MAP_TOL:
+        raise AssertionError(f"dist_test's detections differ from tdal's by {det_err:.3e}")
+    return dict(map_rel_err=worst, kept_tdal=kept, differing=sum(differing.values()),
+                knife_edge=counts, frames_compared=compared, det_rel_err=det_err,
+                cli_s=cli_s, meta=meta)
+
+
+def phase_tdal_checkpoint(device) -> dict:
+    """Phase 13: read ``TDAL_FIXTURE`` in a fresh process that cannot import
+    ``READER_BLOCKED`` (``read_tdal_variants``), then serve it on ``device``
+    (``serve_tdal_checkpoint``)."""
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                              "--tdal-read-child", str(TDAL_FIXTURE), tmp],
+                             capture_output=True, text=True, timeout=300)
+        if res.returncode:
+            raise AssertionError(f"the reading child exited {res.returncode}: "
+                                 f"{res.stderr[-3000:]}")
+        read = json.loads(res.stdout.strip().splitlines()[-1])
+        log(f"  (a) read {sum(read['leaves'].values())} leaves over {len(read['leaves'])} "
+            f"variants bit-equal to tdal's without {', '.join(READER_BLOCKED)}: "
+            f"{read['bytes']} bytes in {read['seconds']:.3f} s, {read['mb_per_s']:.2f} MB/s")
+        serve = serve_tdal_checkpoint(device, TDAL_FIXTURE, Path(tmp))
+    log(f"  (b) dist_test served the checkpoint (step {serve['meta'].get('step')}) in "
+        f"{serve['cli_s']:.1f} s; head maps' errors against tdal's (tol {MAP_TOL:.0e}) "
+        + ", ".join(f"{k} {v:.3e}" for k, v in serve["map_rel_err"].items())
+        + f"; {serve['kept_tdal']} boxes kept by tdal, {serve['differing']} on one side "
+        f"only: knife edges {serve['knife_edge']}; detections of "
+        f"{serve['frames_compared']} frames within {serve['det_rel_err']:.3e}")
+    return dict(read=read, serve=serve, seconds=time.perf_counter() - t_start)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--noise-probe", type=int, default=0, metavar="STATES",
@@ -3712,11 +3932,20 @@ def main() -> int:
                         help="build, then run only phase 11 from a fresh detector")
     parser.add_argument("--dcn-only", action="store_true",
                         help="build, then run only phase 12")
+    parser.add_argument("--import-only", action="store_true",
+                        help="run only phase 13: read tdal's checkpoint fixture without "
+                             "orbax and serve it (no kernel build: it launches none)")
+    parser.add_argument("--tdal-read-child", nargs=2, metavar=("FIXTURE", "TMP"),
+                        help=argparse.SUPPRESS)
     parser.add_argument("--library-times", action="store_true",
                         help="only time phase 5's cuDNN calls in benchmark mode and print "
                              "them as one JSON line (the whole script runs this in a child "
                              "process during phase 12's CPU work)")
     args = parser.parse_args()
+    if args.tdal_read_child:  # phase 13's reading child, which runs on the host alone
+        fixture, tmp = map(Path, args.tdal_read_child)
+        print(json.dumps(read_tdal_variants(fixture, tmp)))
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card", file=sys.stderr)
         return 2
@@ -3730,6 +3959,7 @@ def main() -> int:
 
     # phase 1: the device
     seconds, t_phase = {}, time.perf_counter()
+    t_script = t_phase
 
     def lap(phase: int):
         """Seconds since the previous phase ended, kept under the phase's number."""
@@ -3748,6 +3978,15 @@ def main() -> int:
     log(f"phase 1 device: {kind}; torch {torch.__version__} CUDA {torch.version.cuda}")
     log(f"nvidia-smi: {smi}")
     logging.basicConfig(level=logging.INFO, stream=sys.stdout, format="  %(message)s")
+    if args.import_only:
+        log("phase 13 a checkpoint of tdal's, read without orbax and served (alone)")
+        imported = phase_tdal_checkpoint(device)
+        log(f"  phase 13 seconds: {imported['seconds']:.1f}")
+        print(json.dumps(imported, default=str))
+        log(f"card: {kind} | {smi}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
 
     log("phase 2 build")
     t0 = time.perf_counter()
@@ -3879,6 +4118,10 @@ def main() -> int:
     log("phase 5's kernels beside cuDNN's times")
     attach_library_times(cres, library.ms)
 
+    log("phase 13 a checkpoint of tdal's, read without orbax and served on the card")
+    imported = phase_tdal_checkpoint(device)
+    lap(13)
+
     entries = []
     for name, by_case in kres.items():
         main_case = by_case["static f32"]  # the main path's mode, at the static labeler's shape
@@ -3946,7 +4189,9 @@ def main() -> int:
     log(f"  data-parallel summary: {json.dumps(dp, default=str)}")
     log(f"  data preparation summary: {json.dumps(prep, default=str)}")
     log(f"  deformable head summary: {json.dumps(dcn, default=str)}")
-    log(f"  seconds by phase (phase 2 from the start): {json.dumps(seconds)}")
+    log(f"  tdal checkpoint summary: {json.dumps(imported, default=str)}")
+    log(f"  seconds by phase (phase 2 from the start): {json.dumps(seconds)}; the whole "
+        f"script {time.perf_counter() - t_script:.1f}")
     log(f"card: {kind} | {smi}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

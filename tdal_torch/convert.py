@@ -14,6 +14,8 @@ deformable head (``dcn_sep_head_state_dict``). VoxelNet (``voxelnet_state_dict``
 shares the RPN and head walk; its sparse backbone's
 (K, Cin, Cout) weights map one to one, its dense backbone's 3D conv kernels (kd, kh, kw,
 Ci, Co) become (Co, Ci, kd, kh, kw). ``two_stage_state_dict`` adds the RoI head.
+``load_tdal_checkpoint`` reads a checkpoint directory that tdal wrote (without orbax:
+``tdal_torch.runtime.orbax_format``) and loads it through these converters.
 """
 
 from __future__ import annotations
@@ -55,6 +57,8 @@ def _attr(module: nn.Module, flax_name: str) -> str:
 
 
 def _t(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):  # a bfloat16 leaf of a tdal checkpoint
+        return a.float()
     return torch.from_numpy(np.array(a, dtype=np.float32))
 
 
@@ -130,9 +134,15 @@ def _rpn_and_head(out: dict, model: nn.Module, params: dict, batch_stats: dict,
             if layer.fused is not None:
                 _fused(out, pre + "fused.", p[name]["FusedConvBN_0"],
                        bs[name]["FusedConvBN_0"])
-            else:
+            elif "Conv_0" in p[name]:
                 out[pre + "conv.weight"] = _conv(p[name]["Conv_0"]["kernel"])
                 _bn(out, pre + "bn.", p[name]["BatchNorm_0"], bs[name]["BatchNorm_0"])
+            else:
+                # migrate_legacy_conv_params names every 3x3 Conv_0 + BatchNorm_0 pair
+                # FusedConvBN_0, the strided ones too
+                f = p[name]["FusedConvBN_0"]
+                out[pre + "conv.weight"] = _conv(f["kernel"])
+                _bn(out, pre + "bn.", f, bs[name]["FusedConvBN_0"])
     for j in range(len(model.rpn.deblocks)):
         name, pre = f"DeconvBNReLU_{j}", f"{prefix}rpn.deblocks.{j}."
         d = p[name]
@@ -330,3 +340,24 @@ def load_flax_two_stage(engine: nn.Module, params: dict, batch_stats: dict) -> n
                                   prefix="roi_head."))
     engine.load_state_dict(sd)
     return engine
+
+
+# ---------------------------------------------------------------------------
+# tdal's checkpoints
+# ---------------------------------------------------------------------------
+
+
+def load_tdal_checkpoint(model: nn.Module, path, step=None, prefer_best: bool = False) -> dict:
+    """Load the checkpoint that tdal's ``CheckpointManager`` wrote under ``path`` (a
+    manager's directory or one step directory; ``restore_tdal`` picks the step) into
+    ``model``, on its device: its ``params`` / ``batch_stats`` tree through
+    ``migrate_legacy_conv_params``, then the strict converter of the model's kind (a
+    tree that does not fit raises). Returns the checkpoint's meta."""
+    from tdal_torch.runtime.checkpoint import migrate_legacy_conv_params, restore_tdal
+
+    tree, meta = restore_tdal(path, step, prefer_best=prefer_best)
+    tree = migrate_legacy_conv_params(tree)
+    loader = {"PointPillars": load_flax_pointpillars, "VoxelNet": load_flax_voxelnet,
+              "TwoStageEngine": load_flax_two_stage}.get(type(model).__name__, load_flax)
+    loader(model, tree["params"], tree.get("batch_stats", {}))
+    return meta

@@ -22,7 +22,6 @@ over every frame.
 from __future__ import annotations
 
 import copy
-import json
 import queue
 import threading
 import time
@@ -41,6 +40,7 @@ from tdal_torch.parallel.mesh import (
 from tdal_torch.pipeline.detector_engine import (
     make_detector_steps, make_predict_step, make_tta_predict_step, predictions_to_host,
 )
+from tdal_torch.runtime.logging_utils import LogBuffer, MetricsWriter
 from tdal_torch.runtime.train_state import TrainState
 from tdal_torch.utils.detection_metrics import (
     detections_to_eval_format, evaluate_detection, gt_from_annos,
@@ -133,13 +133,11 @@ def train_detector(state: TrainState, train_ds, code_weights, n_epoch: int,
         profile_dir = None
     train_step = make_detector_steps(state.model, code_weights, weight)
     device = next(state.model.parameters()).device
-    metrics = Path(work_dir) / "logs" / "metrics.jsonl"
-    if main:
-        metrics.parent.mkdir(parents=True, exist_ok=True)
+    writer = MetricsWriter(Path(work_dir) / "logs") if main else None
     steps_per_epoch = max(1, len(train_ds) // batch_size)
     prof_start = min(5, max(steps_per_epoch - 2, 0))
     prof_stop = min(prof_start + 4, steps_per_epoch - 1)
-    prof, window = None, []
+    prof, buf = None, LogBuffer()
     for epoch in range(n_epoch):
         t0 = time.time()
         for i, batch in enumerate(
@@ -155,14 +153,13 @@ def train_detector(state: TrainState, train_ds, code_weights, n_epoch: int,
                 prof = profile_dir = None
             if not main:
                 continue
-            window.append(logs)
+            buf.update(logs)
             if (i + 1) % log_every == 0:
-                avg = {k: float(np.mean([float(w[k]) for w in window])) for k in logs}
+                buf.average(log_every)
                 logger.info(f"Epoch [{epoch + 1}/{n_epoch}][{i + 1}/{steps_per_epoch}] "
-                            + ", ".join(f"{k}: {v:.4f}" for k, v in avg.items()))
-                with open(metrics, "a") as f:
-                    f.write(json.dumps({"mode": "train", "step": state.step, **avg}) + "\n")
-                window.clear()
+                            + ", ".join(f"{k}: {v:.4f}" for k, v in buf.output.items()))
+                writer.write(state.step, buf.output)
+                buf.clear_output()
         logger.info(f"Epoch {epoch + 1} done in {time.time() - t0:.1f}s")
         if main:
             state.save(Path(work_dir) / "checkpoints" / f"step_{state.step:08d}.pt")
@@ -172,8 +169,7 @@ def train_detector(state: TrainState, train_ds, code_weights, n_epoch: int,
             if main:
                 logger.info(f"Val epoch {epoch + 1}: "
                             + ", ".join(f"{k}: {v:.4f}" for k, v in val.items()))
-                with open(metrics, "a") as f:
-                    f.write(json.dumps({"mode": "val", "step": state.step, **val}) + "\n")
+                writer.write(state.step, val, mode="val")
             if mesh is not None:
                 barrier(mesh)
     return state

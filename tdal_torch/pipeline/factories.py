@@ -17,7 +17,8 @@ from tdal_torch.models.pointnet import PointNetSeg
 from tdal_torch.models.static_labeler import (
     StaticLabelerOneBox, StaticLabelerTwoBox, frustum_loss_one_box, frustum_loss_two_box,
 )
-from tdal_torch.runtime.checkpoint import CheckpointManager
+from tdal_torch.convert import load_tdal_checkpoint
+from tdal_torch.runtime.checkpoint import CheckpointManager, is_tdal_checkpoint
 
 _MODELS = {
     "one_box_est": (StaticLabelerOneBox, frustum_loss_one_box, ("pts", "init_box", "bbox_gt"),
@@ -93,7 +94,12 @@ def load_track_data(path, split: int = 16, prefix: str | None = None) -> dict:
 def restore_labeler_state(model: nn.Module, ckpt_dir, prefer_best: bool = True):
     """Load the best (or, with ``prefer_best`` False or no best marker, the latest)
     checkpoint that ``train_labeler`` saved under ``ckpt_dir`` into ``model``, on its
-    device: (model in eval mode, the checkpoint's meta)."""
+    device: (model in eval mode, the checkpoint's meta). A directory that ``tdal``'s
+    labeler training wrote is read and converted (``load_tdal_checkpoint``), with the
+    same choice of step."""
+    if is_tdal_checkpoint(ckpt_dir):
+        meta = load_tdal_checkpoint(model, ckpt_dir, prefer_best=prefer_best)
+        return model.eval(), meta
     mgr = CheckpointManager(ckpt_dir)
     step = mgr.best_step() if prefer_best else None
     state, meta = mgr.restore(step)

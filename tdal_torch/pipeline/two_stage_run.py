@@ -3,8 +3,9 @@
 Port of ``tdal/pipeline/two_stage_run.py``: the fine-tuning flow of the
 ``configs/waymo/*/two_stage/*_freeze*.py`` configs. ``load_pretrained_first`` loads the
 first stage from the config's ``first_stage_cfg.pretrained`` (a checkpoint of
-``train_detector``, or the newest one in its directory; reference single_stage.py:
-33-40), ``train_two_stage`` trains the RoI head (and the first stage, unless frozen) on
+``train_detector``, or the newest one in its directory, or the latest step of a
+directory that ``tdal``'s training wrote; reference single_stage.py: 33-40),
+``train_two_stage`` trains the RoI head (and the first stage, unless frozen) on
 proposal targets with a checkpoint per epoch, and ``run_two_stage_inference`` runs the
 sqrt-rescored two-stage prediction over a dataset. ``train_two_stage`` takes a
 data-parallel mesh as ``train_detector`` does (tdal's ``mesh`` path).
@@ -12,17 +13,19 @@ data-parallel mesh as ``train_detector`` does (tdal's ``mesh`` path).
 
 from __future__ import annotations
 
-import json
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from tdal_torch.convert import load_tdal_checkpoint
 from tdal_torch.parallel.mesh import rank_step, start_run
 from tdal_torch.pipeline.detector_engine import predictions_to_host
 from tdal_torch.pipeline.detector_run import detection_batches
 from tdal_torch.pipeline.two_stage_engine import make_two_stage_steps
+from tdal_torch.runtime.checkpoint import is_tdal_checkpoint
+from tdal_torch.runtime.logging_utils import LogBuffer, MetricsWriter
 from tdal_torch.runtime.train_state import TrainState, checkpoint_file
 
 
@@ -32,6 +35,10 @@ def load_pretrained_first(engine, cfg, logger) -> bool:
     pretrained = cfg.model["first_stage_cfg"].get("pretrained")
     if not pretrained:
         return False
+    if is_tdal_checkpoint(pretrained):
+        meta = load_tdal_checkpoint(engine.first, pretrained)
+        logger.info(f"loaded pretrained first stage from tdal's {pretrained}: {meta}")
+        return True
     try:
         path = checkpoint_file(pretrained)
     except FileNotFoundError:
@@ -55,11 +62,9 @@ def train_two_stage(state: TrainState, train_ds, n_epoch: int, batch_size: int, 
     main, logger = start_run(mesh, batch_size, state.model, logger)
     train_step, _ = make_two_stage_steps(state.model)
     generator = torch.Generator().manual_seed(seed)
-    metrics = Path(work_dir) / "logs" / "metrics.jsonl"
-    if main:
-        metrics.parent.mkdir(parents=True, exist_ok=True)
     steps_per_epoch = max(1, len(train_ds) // batch_size)
-    window = []
+    buf = LogBuffer()
+    writer = MetricsWriter(Path(work_dir) / "logs") if main else None
     for epoch in range(n_epoch):
         t0 = time.time()
         for i, batch in enumerate(
@@ -69,14 +74,13 @@ def train_two_stage(state: TrainState, train_ds, n_epoch: int, batch_size: int, 
                 logs = train_step(state, rows, generator=generator)
             if not main:
                 continue
-            window.append(logs)
+            buf.update(logs)
             if (i + 1) % log_every == 0:
-                avg = {k: float(np.mean([float(w[k]) for w in window])) for k in logs}
+                buf.average(log_every)
                 logger.info(f"Epoch [{epoch + 1}/{n_epoch}][{i + 1}/{steps_per_epoch}] "
-                            + ", ".join(f"{k}: {v:.4f}" for k, v in avg.items()))
-                with open(metrics, "a") as f:
-                    f.write(json.dumps({"mode": "train", "step": state.step, **avg}) + "\n")
-                window.clear()
+                            + ", ".join(f"{k}: {v:.4f}" for k, v in buf.output.items()))
+                writer.write(state.step, buf.output)
+                buf.clear_output()
         logger.info(f"Epoch {epoch + 1} done in {time.time() - t0:.1f}s")
         if main:
             state.save(Path(work_dir) / "checkpoints" / f"step_{state.step:08d}.pt")

@@ -84,7 +84,8 @@ def evaluate(args, kind: str, model_type: str, out_path: Path, logger):
     """static_eval.py:292-352 / dynamic_eval.py: the trained labeler over every
     matched track, its metrics, and the patched det_annos in ``out_path``."""
     dataset_cls, prefix = DATASETS[kind]
-    logger.info("Load track data")
+    if kind == "static":  # tools/dynamic_eval.py logs no such line
+        logger.info("Load track data")
     track = load_track_data(args.track, prefix=prefix)
     info_map = reorganize_info(load_pickle(args.infos))
     annos = AnnoStore(info_map)
@@ -96,6 +97,10 @@ def evaluate(args, kind: str, model_type: str, out_path: Path, logger):
     test_ds = dataset_cls(track, annos, npoints=args.npoints, seed=args.seed)
     model, _, inputs_fn, decode_kind = make_labeler(model_type, args.n_object_points,
                                                     device=args.device)
+    # tools/*_eval.py draw the first sample to initialise their model, which moves the
+    # dataset's generator on: drawing it too keeps the same points in every sample
+    if len(test_ds):
+        test_ds[0]
     model, meta = restore_labeler_state(model, args.model_path)
     logger.info(f"Loaded checkpoint meta: {meta}")
     logger.info("Start testing")

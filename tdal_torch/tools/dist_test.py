@@ -3,7 +3,9 @@
 The detector over a split, in order -> ``<work_dir>/prediction.pkl`` keyed by token;
 ``--speed_test`` logs the middle third's seconds per frame; ``--double_flip`` runs the
 four-variant flip TTA; ``--evaluate`` writes det_annos and the proto rows. The
-checkpoint is a ``.pt`` of ``train``'s (or the newest one in a directory). A
+checkpoint is a ``.pt`` of ``train``'s (or the newest one in a directory), or a
+directory that ``tdal``'s ``CheckpointManager`` wrote (its latest step, read without
+orbax and converted; ``tdal_torch.convert.load_tdal_checkpoint``). A
 ``TwoStageDetector`` config runs ``run_two_stage_inference`` (sqrt-rescored RoI head
 predictions) with a two-stage checkpoint. ``--profile_dir`` traces three batches of
 the middle third (``run_inference``'s hook). Spatial sharding is not ported yet.
@@ -16,12 +18,14 @@ import torch
 
 from tdal_torch.data.detection import DetectionDataset
 from tdal_torch.data.waymo_schema import dump_pickle, load_pickle, reorganize_info
+from tdal_torch.convert import load_tdal_checkpoint
 from tdal_torch.models.builder import (
     build_assigner, build_detector, build_test_cfg, build_two_stage_engine, build_voxel_config,
 )
 from tdal_torch.pipeline.detector_run import run_inference
 from tdal_torch.pipeline.two_stage_run import run_two_stage_inference
 from tdal_torch.pipeline.track_extraction import create_pd_detection
+from tdal_torch.runtime.checkpoint import is_tdal_checkpoint
 from tdal_torch.runtime.config import Config
 from tdal_torch.runtime.logging_utils import create_logger, fix_seed
 from tdal_torch.runtime.train_state import TrainState, checkpoint_file
@@ -33,7 +37,8 @@ def parse_args():
     parser.add_argument("config", help="config file path")
     parser.add_argument("--work_dir", required=True)
     parser.add_argument("--checkpoint", required=True,
-                        help="a checkpoint (.pt) of train, or its checkpoints dir (the newest)")
+                        help="a checkpoint (.pt) of train, or its checkpoints dir (the "
+                             "newest), or a checkpoint directory of tdal's (its latest step)")
     parser.add_argument("--info_path", help="override infos path")
     parser.add_argument("--split", default="val", choices=["val", "mytrain", "test", "train"])
     parser.add_argument("--batch_size", type=int, default=None)
@@ -78,10 +83,14 @@ def main():
     logger.info(f"{len(ds)} frames to run")
 
     state = TrainState(model, None)
-    ckpt = checkpoint_file(args.checkpoint)
-    model.load_state_dict(torch.load(ckpt, map_location=next(model.parameters()).device,
-                                     weights_only=True)["model"])
-    logger.info(f"restored checkpoint: {ckpt}")
+    if is_tdal_checkpoint(args.checkpoint):
+        meta = load_tdal_checkpoint(model, args.checkpoint)
+        logger.info(f"restored tdal checkpoint {args.checkpoint}: {meta}")
+    else:
+        ckpt = checkpoint_file(args.checkpoint)
+        model.load_state_dict(torch.load(ckpt, map_location=next(model.parameters()).device,
+                                         weights_only=True)["model"])
+        logger.info(f"restored checkpoint: {ckpt}")
     batch_size = args.batch_size or cfg.data.get("samples_per_gpu", 4)
     if two_stage:
         detections = run_two_stage_inference(state, ds, batch_size, logger,

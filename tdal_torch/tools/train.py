@@ -17,11 +17,16 @@ default the config's ``samples_per_gpu`` times the number of ranks.
 A config whose ``train_preprocessor.db_sampler`` is enabled trains with GT-aug from the
 database that ``python -m tdal_torch.tools.create_data waymo_data_prep`` writes; the
 log says whether the sampler is on (and for which classes) or off, and why.
+
+``--resume_from`` takes a ``.pt`` of the port's, or a checkpoint directory that
+``tdal``'s training wrote: then, as ``tdal``'s resume does, the weights and the step
+come from its latest checkpoint and the optimizer starts afresh.
 """
 
 import argparse
 from pathlib import Path
 
+from tdal_torch.convert import load_tdal_checkpoint
 from tdal_torch.data.detection import DetectionDataset
 from tdal_torch.data.gt_augment import build_db_sampler
 from tdal_torch.data.waymo_schema import load_pickle
@@ -31,6 +36,7 @@ from tdal_torch.models.builder import (
 from tdal_torch.parallel.mesh import is_main, launch
 from tdal_torch.pipeline.detector_run import train_detector
 from tdal_torch.pipeline.two_stage_run import load_pretrained_first, train_two_stage
+from tdal_torch.runtime.checkpoint import is_tdal_checkpoint
 from tdal_torch.runtime.config import Config
 from tdal_torch.runtime.logging_utils import create_logger, fix_seed, quiet_logger
 from tdal_torch.runtime.schedules import adam_with_schedule, one_cycle
@@ -48,7 +54,9 @@ def parse_args():
     parser.add_argument("--seed", type=int, default=None)
     parser.add_argument("--no_data_parallel", action="store_true",
                         help="train on one device instead of one rank per card")
-    parser.add_argument("--resume_from", default=None, help="a checkpoint (.pt) to resume")
+    parser.add_argument("--resume_from", default=None,
+                        help="a checkpoint (.pt) to resume, or a checkpoint directory of "
+                             "tdal's (its weights and step; the optimizer starts afresh)")
     parser.add_argument("--val_info_path", help="val infos for in-training eval "
                         "(overrides cfg.data.val.info_path)")
     parser.add_argument("--val_every", type=int, default=1, help="val every N epochs")
@@ -147,7 +155,11 @@ def train(mesh, args):
     state = TrainState(model, opt)
     if two_stage:
         load_pretrained_first(model, cfg, logger)
-    if args.resume_from:
+    if args.resume_from and is_tdal_checkpoint(args.resume_from):
+        meta = load_tdal_checkpoint(model, args.resume_from)
+        state.step = int(meta.get("step", 0))
+        logger.info(f"resumed from {args.resume_from}: {meta}")
+    elif args.resume_from:
         state.load(args.resume_from)
         logger.info(f"resumed from {args.resume_from} at step {state.step}")
     if two_stage:

@@ -1,7 +1,8 @@
 """tdal_torch stands alone and never falls back to the CPU.
 
 - Importing every tdal_torch submodule (in a fresh interpreter) loads no jax, flax,
-  optax or tdal module and builds no kernel.
+  optax, tdal, orbax, tensorstore, zstandard, zarr or numcodecs module and builds no
+  kernel.
 - No source of tdal_torch, nor chip_smoke.py, imports one (AST scan).
 - Without a card, the entry points refuse the default device (CUDA) instead of
   running on the CPU.
@@ -35,9 +36,12 @@ print(" ".join(sorted(sys.modules)))
 
 
 def _forbidden(module: str) -> bool:
-    """jax*, flax*, optax, and tdal or tdal.* (tdal_torch is the port itself)."""
+    """jax*, flax*, optax, tdal or tdal.* (tdal_torch is the port itself), and the
+    checkpoint stack that the port's orbax reader replaces: orbax, tensorstore,
+    zstandard, zarr and numcodecs."""
     top = module.split(".")[0]
-    return top.startswith(("jax", "flax")) or top in ("optax", "tdal")
+    return top.startswith(("jax", "flax")) or top in (
+        "optax", "tdal", "orbax", "tensorstore", "zstandard", "zarr", "numcodecs")
 
 
 def test_importing_the_port_loads_no_reference_module():

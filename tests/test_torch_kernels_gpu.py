@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain twins, on the card: the fused
 PointNet-seg kernels (K1, K2) and the 3x3 conv kernels (K3, K4, K5/K6, K7, with their
-tolerances below), and one detector train step through them.
+tolerances below), one detector train step through them, and phase 13 of
+``chip_smoke.py`` (a checkpoint of tdal's read without orbax and served on the card).
 
 This file imports no jax, so it also runs where only PyTorch is installed:
 ``python -m pytest --noconftest -q tests/test_torch_kernels_gpu.py``. Without a card
@@ -721,3 +722,17 @@ def test_fused_conv_bn_chain_data_parallel_on_card(cuda, tmp_path):
                                   atol=1e-6 * max(1.0, float(v.abs().max()))), k
     for k, v in ranks[0]["grads"].items():
         assert torch.equal(v, ranks[1]["grads"][k]), k
+
+
+@pytest.mark.gpu
+def test_tdal_checkpoint_reads_and_serves_on_card(cuda):
+    """``chip_smoke.py`` phase 13 at the fixture's size: tdal's checkpoint
+    (``tests/data/tdal_ckpt``) read bit for bit in a process that cannot import jax,
+    orbax, tensorstore, zstandard, zarr or numcodecs, then served on the card by
+    ``dist_test`` with its head maps within ``MAP_TOL`` of tdal's recorded ones and its
+    kept sets equal but for knife edges."""
+    import chip_smoke
+
+    out = chip_smoke.phase_tdal_checkpoint(cuda)
+    assert sum(out["read"]["leaves"].values()) == 6 * 34
+    assert max(out["serve"]["map_rel_err"].values()) <= chip_smoke.MAP_TOL
