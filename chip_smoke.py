@@ -39,13 +39,16 @@ nothing of JAX or of ``tdal``, and exits non-zero on any failure. Phases:
    with positive shifts (a halo leak shows there), in f32 and bf16 and with the input
    affine on and off; kernel, twin and cuDNN times (CUDA events, warm, median of 10;
    cuDNN with ``torch.backends.cudnn.benchmark`` on, so its own fastest algorithm, in
-   a child process, so that the plans it finds stay out of phases 6-7; it runs during
-   phase 12's CPU work, which leaves the card idle, and phase 5's cuDNN times are
-   printed after phase 12) and the bound;
+   a child process, so that the plans it finds stay out of phases 6-7; it runs while
+   the script waits for the CPU lane at its end, which leaves the card idle, and phase
+   5's cuDNN times are printed then) and the bound;
    for K7 also the unfused route (K4, then the mask and sums in torch) and cuDNN's
    ``conv2d_input`` with the same epilogue. Then K4 as ``conv3x3`` (the function of
    tdal's benchmark prototype, ``benchmarks/proto_pallas_conv.py``) in bf16 at the
-   stage-1 shape;
+   stage-1 shape; and the row halo forms of K3, K4, K5 and K7 (halo (1, 1), the BEV
+   spatial partitioning's) at the kernels line's case, each timed beside its
+   whole-image call on the same rows and held against the whole-image kernel on the
+   map whose inner rows it computes;
 6. PointPillars training end to end: ``configs/waymo/pp/waymo_centerpoint_pp_two_
    pfn_stride1_3x.py`` through the port's ``Config.fromfile``, ``build_detector``
    (fresh init from seed 0) and ``train_detector`` at batch 4 on a synthetic dataset
@@ -69,7 +72,12 @@ nothing of JAX or of ``tdal``, and exits non-zero on any failure. Phases:
    ways; for the SepHead's final cuDNN conv plus both libraries' f32 error against
    float64), and the parameters after the AdamW update. Two controls must fail that
    comparison: the card's step without the 2*y*gss term of the statistics' backward,
-   and the step of the same weights with bf16 activations;
+   and the step of the same weights with bf16 activations. The CPU copy's steps (the
+   step and its noise-floor steps) run in the CPU lane: one child process (a
+   ``ProcessPoolExecutor`` worker) that computes the CPU references of phases 6, 9 (a) and 12 (b) one after
+   another while this process goes on with the card's phases; the card's
+   steps and controls run in the phase, and each check is judged, its readings printed,
+   after phase 14 (a failing check exits non-zero there);
 7. PointPillars inference on the Waymo config's test settings (468^2 BEV, 60000
    pillars, NMS pre 4096 / post 500 at IoU 0.7, score 0.1) with the weights phase 6
    trained: ``run_inference`` over a synthetic test split (24 frames of 150000
@@ -185,11 +193,32 @@ nothing of JAX or of ``tdal``, and exits non-zero on any failure. Phases:
    candidates equal to those of tdal's maps but for knife edges (counted, as phase 7
    holds its batch), and the CLI's detections within ``MAP_TOL`` of tdal's
    ``run_inference`` output in every frame without a knife edge;
-14. one line ``{"kernels": [...]}`` (K1, K2, K3, K4, K5/K6, K7, and K4 again as the
+14. BEV spatial partitioning (``tdal_torch.parallel.mesh``; the detector's
+   ``bev_sharding``) of the Waymo PP config at full width with phase 6's snapshot, f32,
+   on two gloo ranks sharing the card (NCCL refuses two ranks on one device). First the
+   conv kernels' halo forms against their twins with the same halo at the phase's conv
+   sites on each rank's row slab (``conv_halo_twin_checks``: phase 5's PP shapes, H
+   split as the phase splits it, halo (0, 1) and (1, 0), input affine on and off,
+   phase 5's tolerances). (a) A batch
+   of 4 of phase 7's test frames through the partitioned eval forward: each rank's rows
+   at every RPN level, the gathered head maps against the one-process forward on the
+   card within ``MAP_TOL`` and the kept sets equal but for knife edges (counted, as
+   phase 7 counts them). (b) One train step at a global batch of 4, both ranks holding
+   it whole, under ``deterministic``, against phase 10 (a)'s single-process step on
+   the card with its noise floor (phase 6's comparison), every reading printed as a
+   share of its tolerance; both ranks must end with the same state; the halo rows
+   replaced by zeros, and BN moments per slab, must fail it; each rank must launch
+   phase 6's counts a step (K3 16, K4 4, K7 12, K5/K6 16), every one in the halo form.
+   (c) Where the machine has two cards, (a) over NCCL across two, with the forward's
+   ms a batch and frames/s beside one card's; otherwise the line ``one card: (c) not
+   run``. Then the checks of phases 6, 9 and 12 are judged on the CPU lane's
+   references;
+15. one line ``{"kernels": [...]}`` (K1, K2, K3, K4, K5/K6, K7, and K4 again as the
    benchmark prototype's function), each kernel's ``launches`` from phases 8, 9, 10(b),
-   11 and 12;
-15. the last line ``{"ok": true, "device": {...}}``. The seconds each phase took, and
-   the whole script's, are printed before the ``kernels`` line.
+   11, 12 and 14 (b), the conv kernels' halo forms' times from phase 5;
+16. the last line ``{"ok": true, "device": {...}}``. The seconds each phase took, and
+   the whole script's, are printed before the ``kernels`` line, beside those recorded
+   from a run without the CPU lane.
 
 ``--noise-probe STATES`` builds and then runs only ``noise_probe``: on the card, how
 often phase 6's comparison would fail a step that differs by rounding alone.
@@ -201,18 +230,24 @@ only phase 6;
 ``--data-prep-only`` builds and then runs only phase 11, from a fresh detector;
 ``--dcn-only`` builds and then runs only phase 12, and prints its seconds and peak
 memory; ``--import-only`` runs only phase 13 (without the build, since it launches no
-hand kernel) and prints its seconds.
+hand kernel) and prints its seconds; ``--sp-only`` builds and then runs only phase 14,
+from phase 6's snapshot (its first epoch alone), measuring its own single-process
+reference, and prints its seconds. Alone, a phase computes its checks' CPU references
+in this process.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import copy
+import io
 import itertools
 import json
 import logging
 import math
+import multiprocessing
 import re
 import shutil
 import statistics
@@ -274,7 +309,7 @@ def log(msg: str):
 
 _CONV_ENTRY = re.compile(
     r"(conv3x3_kernel|wgrad_kernel)I(f|13__nv_bfloat16)Lb([01])E"
-    r"(?:LNS_8EpilogueE([012])E)?Lb([01])E")
+    r"(?:LNS_8EpilogueE([012])E)?Lb([01])E(?:Lb([01])E)?")
 _EPILOGUES = ("affine", "stats", "dgrad_act")
 
 
@@ -286,10 +321,11 @@ def conv_build_report(build_log: str, lib) -> list:
         m = _CONV_ENTRY.search(chunk.split("'", 1)[0])
         if not m:
             continue
-        kind, elem, in_act, epi, vec = m.groups()
+        kind, elem, in_act, epi, vec, halo = m.groups()
         bf16 = elem != "f"
         name = (f"{kind}<{'bf16' if bf16 else 'f32'}, in_act={in_act}"
-                + (f", {_EPILOGUES[int(epi)]}" if epi is not None else "") + f", vec={vec}>")
+                + (f", {_EPILOGUES[int(epi)]}" if epi is not None else "")
+                + f", vec={vec}, halo={halo}>")
 
         rows.append(dict(kernel=name, **ptxas_numbers(chunk),
                          dynamic_smem=lib.conv3x3_smem(kind == "wgrad_kernel", bf16)))
@@ -320,11 +356,11 @@ def sass_mma_counts(names) -> dict:
     ``names`` (mangled) in the built library, from ``cuobjdump -sass -fun``."""
     from torch.utils.cpp_extension import CUDA_HOME
 
-    from tdal_torch.ops.build import BUILD_DIR
+    from tdal_torch.ops.build import kernels
 
     sass = subprocess.run(
         [str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass", "-fun", ",".join(names),
-         str(BUILD_DIR / "libtdal_torch_kernels.so")],
+         str(kernels().path)],
         capture_output=True, text=True, check=True, timeout=300,
     ).stdout
     counts, fn = {}, None
@@ -748,8 +784,9 @@ def library_times(device) -> dict:
 
 class LibraryTimes:
     """``library_times`` in a child process (this script with ``--library-times``),
-    started while the parent leaves the card idle (phase 12's CPU work) and waited for
-    before the parent uses the card again; ``stop`` ends it if it still runs."""
+    started while the parent leaves the card idle (as it waits for the CPU lane) and
+    waited for before the parent uses the card again; ``stop`` ends it if it still
+    runs."""
 
     def __init__(self):
         self.proc = self.ms = self.seconds = None
@@ -772,8 +809,8 @@ class LibraryTimes:
             raise RuntimeError(f"the library timing process failed:\n{out[-2000:]}"
                                f"\n{err[-2000:]}")
         self.ms = json.loads(out.strip().splitlines()[-1])
-        log(f"  cuDNN's times in benchmark mode, in a process of their own that ran during "
-            f"phase 12's CPU work ({self.seconds:.1f} s)")
+        log(f"  cuDNN's times in benchmark mode, in a process of their own that ran while "
+            f"this one waited for the CPU lane ({self.seconds:.1f} s)")
         return self.ms
 
     def stop(self):
@@ -793,11 +830,11 @@ def attach_library_times(results: dict, lib_ms: dict):
                 f"({r['library_ms'] / r['ms']:.2f}x), twin {r['plain_ms']:.3f} ms")
 
 
-def dgrad_act_scales(gy, wt, x, s, t):
+def dgrad_act_scales(gy, wt, x, s, t, halo=(0, 0)):
     """(2, C): sum |dxh * x| and sum |dxh| per channel, from the twin's arithmetic."""
     from tdal_torch.ops import conv3x3 as cv
 
-    dxh = cv._conv_f32(gy.float(), wt.float()) * (x.float() * s + t > 0)
+    dxh = cv._conv_f32(gy.float(), wt.float(), halo) * (x.float() * s + t > 0)
     return torch.stack([(dxh * x.float()).abs().sum(dim=(0, 1, 2)),
                         dxh.abs().sum(dim=(0, 1, 2))])
 
@@ -938,7 +975,136 @@ def phase_conv(device) -> dict:
             torch.cuda.empty_cache()
     if failures:
         raise AssertionError("conv kernels disagree with their twins: " + "; ".join(failures))
-    return results
+    return results, conv_halo_times(device)
+
+
+def conv_halo_times(device) -> dict:
+    """The row halo forms (halo (1, 1): a slab with a neighbour above and below) at the
+    kernels line's case (``CONV_MAIN``: B=4, 468 own rows of 468, 64->64, f32, input
+    affine on), each kernel's ms beside its whole-image call on the same output rows.
+    Each is held against the whole-image kernel on the 470-row map whose inner 468 rows
+    it computes: the same per-pixel sums, so y and dx to 1e-5 of max(1, |x|) (1e-6 was
+    seen), dw (other tiles, another summation order) to 1e-5."""
+    from tdal_torch.ops import conv3x3 as cv
+
+    shape = CONV_SHAPES[CONV_MAIN.split(" f32")[0]]
+    b, h, w, c, co = shape
+    g = torch.Generator().manual_seed(7)
+    big = lambda *sh: torch.randn(*sh, generator=g).to(device)  # noqa: E731
+    x, gy = big(b, h + 2, w, c), big(b, h + 2, w, co)
+    wt = (torch.randn(3, 3, c, co, generator=g) / (3 * c ** 0.5)).to(device)
+    bias, s, t = big(co), (0.5 + torch.rand(c, generator=g)).to(device), big(c)
+    wf, zero = cv._flip_swap(wt), torch.zeros(c, device=device)
+    inner = lambda a: a[:, 1:-1].contiguous()  # noqa: E731
+    xo, go = inner(x), inner(gy)
+    g_pad = torch.nn.functional.pad(go, (0, 0, 0, 0, 1, 1))  # zero cotangent at the halo
+    calls = {  # name -> (halo form, whole-image call on the own rows, reference pair)
+        "conv3x3_fwd_stats": (lambda: cv.conv3x3_fwd_stats(x, wt, bias, s, t, True, (1, 1)),
+                              lambda: cv.conv3x3_fwd_stats(xo, wt, bias, s, t, True),
+                              lambda: inner(cv.conv3x3_fwd_stats(x, wt, bias, s, t, True)[0])),
+        "conv3x3_fwd": (lambda: cv.conv3x3_fwd(gy, wf, zero, halo=(1, 1)),
+                        lambda: cv.conv3x3_fwd(go, wf, zero),
+                        lambda: inner(cv.conv3x3_fwd(gy, wf, zero))),
+        "conv3x3_wgrad": (lambda: cv.conv3x3_wgrad(x, go, s, t, True, (1, 1)),
+                          lambda: cv.conv3x3_wgrad(xo, go, s, t, True),
+                          lambda: cv.conv3x3_wgrad(x, g_pad, s, t, True)),
+        "conv3x3_dgrad_act": (lambda: cv.conv3x3_dgrad_act(gy, wf, xo, s, t, (1, 1)),
+                              lambda: cv.conv3x3_dgrad_act(go, wf, xo, s, t),
+                              lambda: inner(cv.conv3x3_dgrad_act(
+                                  gy, wf, torch.nn.functional.pad(xo, (0, 0, 0, 0, 1, 1)),
+                                  s, t)[0])),
+    }
+    out, failures = {}, []
+    for name, (halo_call, whole_call, ref_call) in calls.items():
+        got, ref = halo_call(), ref_call()
+        got = got[0] if isinstance(got, tuple) else got
+        err = rel_err(got.float(), ref.float())[1]
+        out[name] = dict(halo_ms=time_ms(halo_call, reps=10, warm=2),
+                         whole_ms=time_ms(whole_call, reps=10, warm=2), rel_err=err)
+        log(f"  {name} {CONV_MAIN} in the halo form (1, 1): {out[name]['halo_ms']:.3f} ms "
+            f"beside {out[name]['whole_ms']:.3f} ms for the whole-image call on the same "
+            f"{h} rows; against the whole-image kernel on {h + 2} rows {err:.3e} (tol 1e-5)")
+        if not err <= 1e-5:
+            failures.append(f"{name}: {err:.3e}")
+        del got, ref
+    if failures:
+        raise AssertionError("the halo forms disagree with the whole-image kernels: "
+                             + "; ".join(failures))
+    return out
+
+
+# phase 14's stride-1 conv sites, which run on a rank's row slab: phase 5's PP shapes
+SLAB_SHAPES = ("rpn stage 1", "rpn stage 2", "rpn stage 3", "head shared", "head branch")
+
+
+def conv_halo_twin_checks(device) -> dict:
+    """Each kernel's halo form against its twin with the same halo, on the same card
+    tensors, at phase 14's conv sites on each rank's row slab: phase 5's PP shapes with
+    H split as phase 14 splits it over ``SP_WORLD`` ranks (the coarsest level's rows,
+    scaled to each level: halo (0, 1) on the first rank, (1, 0) on the last), f32,
+    positive input shifts (relu(t) leaked into the padding at the map's own edge would
+    move its edge rows). K3 and K5/K6 with the input affine on and off, K4 as the dgrad
+    (shift 0) and with scale + ReLU, K7 (not at the never-chained shared conv). Held as
+    phase 5 holds the whole-image kernels (``CONV_TOL``); a mismatch raises. Returns the
+    worst relative error of each kernel, by shape and rank."""
+    from tdal_torch.ops import conv3x3 as cv
+    from tdal_torch.parallel.mesh import row_ranges
+
+    coarse = CONV_SHAPES["rpn stage 3"][1]
+    tol_y, tol_acc = CONV_TOL[torch.float32]
+    out, failures = {}, []
+    for shape_name in SLAB_SHAPES:
+        b, h, w, c, co = CONV_SHAPES[shape_name]
+        ranges = [(a * h // coarse, e * h // coarse) for a, e in row_ranges(coarse, SP_WORLD)]
+        for r, (a, e) in enumerate(ranges):
+            halo, n = (int(r > 0), int(r < len(ranges) - 1)), e - a
+            g = torch.Generator().manual_seed(h + c + r)
+            rnd = lambda *sh: torch.randn(*sh, generator=g).to(device)  # noqa: E731
+            pos = lambda k: (0.5 + torch.rand(k, generator=g)).to(device)  # noqa: E731
+            x, gh = rnd(b, sum(halo) + n, w, c), rnd(b, sum(halo) + n, w, co)
+            xo = x[:, halo[0] : halo[0] + n].contiguous()
+            go = gh[:, halo[0] : halo[0] + n].contiguous()
+            wt = (torch.randn(3, 3, c, co, generator=g) / (3 * c ** 0.5)).to(device)
+            wf, zero_c = cv._flip_swap(wt), torch.zeros(c, device=device)
+            bias, scale, s, t = rnd(co), pos(co), pos(c), pos(c)
+            cases = {}  # kernel -> [(kernel's out, twin's out, tol)]
+            for act in (False, True):
+                (y, st), (y_t, st_t) = (
+                    f(x, wt, bias, s, t, act, halo)
+                    for f in (cv.conv3x3_fwd_stats, cv.conv3x3_fwd_stats_plain))
+                cases.setdefault("K3", []).extend([(y, y_t, tol_y), (st, st_t, tol_acc)])
+                cases.setdefault("K5/K6", []).append(
+                    tuple(f(x, go, s, t, act, halo) for f in (
+                        cv.conv3x3_wgrad, cv.conv3x3_wgrad_plain)) + (tol_acc,))
+            cases["K4"] = [
+                (cv.conv3x3_fwd(gh, wf, zero_c, halo=halo),
+                 cv.conv3x3_fwd_plain(gh, wf, zero_c, halo=halo), tol_y),
+                (cv.conv3x3_fwd(x, wt, bias, scale, True, halo),
+                 cv.conv3x3_fwd_plain(x, wt, bias, scale, True, halo), tol_y)]
+            errs = {k: [(*rel_err(got.float(), want.float()), tol) for got, want, tol in v]
+                    for k, v in cases.items()}
+            if not shape_name.endswith("head shared"):  # K7: chained sites only
+                (dx, st), (dx_t, st_t) = (f(gh, wf, xo, s, t, halo) for f in (
+                    cv.conv3x3_dgrad_act, cv.conv3x3_dgrad_act_plain))
+                d = (st - st_t).abs()
+                errs["K7"] = [(*rel_err(dx, dx_t), tol_y), (
+                    float(d.max()), float((d / dgrad_act_scales(
+                        gh, wf, xo, s, t, halo).clamp_min(1e-30)).max()), tol_acc)]
+            torch.cuda.synchronize()
+            worst = {k: max(e[1] / e[2] for e in v) for k, v in errs.items()}
+            out[f"{shape_name} rank {r}"] = dict(
+                rows=n, of=h, halo=list(halo), channels=[c, co],
+                rel_err={k: max(e[1] for e in v) for k, v in errs.items()})
+            log(f"    {shape_name}, rank {r}: {n} own rows of {h}, halo {halo}, {c}->{co}: "
+                "worst share of the tolerance " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in worst.items()))
+            failures += [f"{shape_name} rank {r} {k}: {v:.3f}" for k, v in worst.items()
+                         if not v <= 1]
+            del x, gh, xo, go, cases, errs
+            torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("the halo forms disagree with their twins: " + "; ".join(failures))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1038,26 +1204,32 @@ def library_conv_probes(m, captured):
 
 
 def step_with_grads(model, batch, device, cfg, n_steps_total, perturb=0.0, perturb_seed=1,
-                    mesh=None):
+                    mesh=None, spatial: bool = False):
     """One train step of a copy of ``model`` on ``device``: (loss, gradients, state
     after the AdamW update, lr of the step, library error), on the CPU in float64.
     ``perturb`` != 0 first scales every parameter by 1 + perturb * u, u uniform in
     [-1, 1] from ``perturb_seed`` (so -perturb moves each weight the other way).
     With a data-parallel ``mesh`` the step takes this rank's rows of ``batch``, its
     gradients are summed over the ranks before the update, and the loss and library
-    errors are summed over them too.
+    errors are summed over them too. With ``spatial`` the copy's BEV stack is
+    partitioned over ``mesh``'s spatial axis (``bev_sharding``).
 
     The library error of each of ``library_conv_probes``' convs (cuDNN or oneDNN, not a
     kernel of the port) is the largest distance of its f32 weight gradient from a
-    float64 weight gradient of the same input and cotangent."""
+    float64 weight gradient of the same input and cotangent; under ``spatial``, of the
+    gradient summed over the ranks from the whole map's input (gathered)."""
     from torch.nn.grad import conv2d_weight
 
     from tdal_torch.models.center_head import center_head_loss
-    from tdal_torch.parallel.mesh import all_reduce_grads, scope, shard_batch, sum_logs
+    from tdal_torch.parallel.mesh import (
+        all_reduce_grads, scope, shard_batch, spatial_sharding, sum_logs,
+    )
     from tdal_torch.pipeline.detector_engine import TARGET_KEYS, batch_to_device
     from tdal_torch.runtime.schedules import adam_with_schedule, one_cycle
 
     m = copy.deepcopy(model).to(device).train()
+    if spatial:
+        m.bev_sharding = spatial_sharding(mesh)
     if perturb:
         gen = torch.Generator().manual_seed(perturb_seed)
         with torch.no_grad():
@@ -1070,6 +1242,10 @@ def step_with_grads(model, batch, device, cfg, n_steps_total, perturb=0.0, pertu
     head = cfg.model["bbox_head"]
     captured = {}
     probes = library_conv_probes(m, captured)
+    if spatial:  # the head's row slab, to gather the probes' inputs
+        m.head.register_forward_pre_hook(
+            lambda mod, args, kwargs: captured.__setitem__("slab", kwargs["slab"]),
+            with_kwargs=True)
     with scope(mesh):
         preds = m(b["points"])
         total, _ = center_head_loss(preds, {k: b[k] for k in TARGET_KEYS},
@@ -1085,6 +1261,10 @@ def step_with_grads(model, batch, device, cfg, n_steps_total, perturb=0.0, pertu
                    for name, w, *_ in probes}
         if mesh is not None:
             all_reduce_grads(m.parameters(), mesh)
+        if spatial:  # the summed gradient, against the whole map's
+            lib_f32 = {name: w.grad.detach().cpu().double() for name, w, *_ in probes}
+            for inp in dict.fromkeys(p[4] for p in probes):  # in one order on every rank
+                captured[inp] = captured["slab"].gather(captured[inp])
         loss = float(sum_logs({"loss": total.detach()})["loss"])
     grads = {n: p.grad.detach().cpu().double() for n, p in m.named_parameters()}
     lib_err = {}
@@ -1228,7 +1408,7 @@ def compare_steps(model, card, cpu, noise_grads, lr0, noise_states=None):
     return worst, failures, leaves
 
 
-def check_step_against_cpu(model, model_bf16, batch, device, cfg, n_steps_total) -> dict:
+def check_step_against_cpu(model, model_bf16, batch, device, cfg, n_steps_total):
     """Phase 6's check: the same train step on the card and on a CPU copy (plain
     versions), and two controls that the same comparison must find wrong in the
     gradients: the card's step with ``without_second_moment_grad`` and the step of
@@ -1236,15 +1416,78 @@ def check_step_against_cpu(model, model_bf16, batch, device, cfg, n_steps_total)
     return check_step_with_controls(
         model, batch, device, cfg, n_steps_total,
         {"no 2*y*gss": (model, without_second_moment_grad, "grad_err_over_tol"),
-         "bf16 model": (model_bf16, contextlib.nullcontext, "grad_err_over_tol")})
+         "bf16 model": (model_bf16, contextlib.nullcontext, "grad_err_over_tol")},
+        name="phase 6's card-vs-CPU step", deterministic_reference=True)
+
+
+def cpu_reference(job: dict) -> dict:
+    """A card-vs-CPU check's reference on the CPU: ``job``'s train step of its model on
+    a CPU copy (plain versions), and its ``NOISE_TERMS``' steps, under ``deterministic``
+    where the job says so. Returns the step (loss, gradients, state, library error),
+    the noise steps' gradients (and states), and the seconds."""
+    from tdal_torch.runtime.config import Config
+
+    cpu, cfg = torch.device("cpu"), Config(job["cfg"])
+    args = (job["model"], job["batch"], cpu, cfg, job["n_steps_total"])
+    t0 = time.perf_counter()
+    with deterministic() if job["deterministic"] else contextlib.nullcontext():
+        loss, grads, state, _, lib = step_with_grads(*args)
+        noise = noise_steps_of(*args)
+    return dict(reference=(loss, grads, state, lib), noise_grads=[n[1] for n in noise],
+                noise_states=[n[2] for n in noise] if job["stat_noise"] else None,
+                seconds=time.perf_counter() - t0)
+
+
+def lane_reference(job: bytes) -> bytes:
+    """``cpu_reference`` in the CPU lane: the job and its result travel as ``torch.save``
+    bytes, which hold no shared-memory handle of either process."""
+    out = io.BytesIO()
+    torch.save(cpu_reference(torch.load(io.BytesIO(job), weights_only=False)), out)
+    return out.getvalue()
+
+
+def cpu_lane():
+    """The CPU lane: one child process that computes the card-vs-CPU checks' CPU
+    references (``lane_reference``) one after another while this process goes on with
+    the card's phases (they are about two thirds of the script's time and need no
+    card). The readings of host work taken meanwhile share the cores with it (PERF.md
+    has them with and without the lane)."""
+    return concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+
+
+LANE = None  # the cpu_lane() of a whole run; None runs each reference in this process
+
+
+class PendingCheck:
+    """A card-vs-CPU check whose card steps have run and whose CPU reference is coming
+    (from ``LANE``, or computed here at once without one): ``result()`` judges it."""
+
+    def __init__(self, name, judge, job):
+        self.name, self.judge = name, judge
+        if LANE is None:
+            self.ref, self.future = cpu_reference(job), None
+        else:
+            blob = io.BytesIO()
+            torch.save(job, blob)
+            self.ref, self.future = None, LANE.submit(lane_reference, blob.getvalue())
+
+    def result(self) -> dict:
+        if self.ref is None:
+            self.ref = torch.load(io.BytesIO(self.future.result()), weights_only=False)
+        log(f"  {self.name}:")
+        return self.judge(self.ref)
 
 
 def check_step_with_controls(model, batch, device, cfg, n_steps_total, controls,
-                             stat_noise: bool = False) -> dict:
+                             stat_noise: bool = False, name: str = "the check",
+                             deterministic_reference: bool = False) -> PendingCheck:
     """The same train step of ``model`` on the card and on a CPU copy (plain versions),
     held by ``compare_steps``, and ``controls``: name -> (model, context manager to run
     its card step in, the reading that must exceed 1, or None for a control whose
-    readings are printed only)."""
+    readings are printed only). The card's steps run now; the CPU copy's (the step and
+    its noise-floor steps, under ``deterministic`` with ``deterministic_reference``) in
+    ``LANE``: the returned check's ``result()`` waits for them and judges."""
     def card_step(m):
         loss, g, state, lr0, lib = step_with_grads(m, batch, device, cfg, n_steps_total)
         return (loss, g, state, lib), lr0
@@ -1253,20 +1496,27 @@ def check_step_with_controls(model, batch, device, cfg, n_steps_total, controls,
     card, lr0 = card_step(model)
     t_gpu = time.perf_counter() - t0
     control_steps = {}
-    for name, (m, context, _) in controls.items():
+    for cname, (m, context, _) in controls.items():
         with context():
-            control_steps[name] = card_step(m)[0]
-    t0 = time.perf_counter()
-    cpu = torch.device("cpu")
-    loss_cpu, g_cpu, s_cpu, _, lib_cpu = step_with_grads(model, batch, cpu, cfg,
-                                                         n_steps_total)
-    noise = noise_steps_of(model, batch, cpu, cfg, n_steps_total)
-    noise_grads = [n[1] for n in noise]
-    noise_states = [n[2] for n in noise] if stat_noise else None
-    del noise
-    t_cpu = time.perf_counter() - t0
-    reference = (loss_cpu, g_cpu, s_cpu, lib_cpu)
+            control_steps[cname] = card_step(m)[0]
+    job = dict(model=copy.deepcopy(model).cpu(), batch=batch, cfg=cfg.to_dict(),
+               n_steps_total=n_steps_total, stat_noise=stat_noise,
+               deterministic=deterministic_reference)
 
+    def judge(ref):  # on the weights of the step, whatever ``model`` holds by then
+        return judge_steps(job["model"], batch, card, control_steps, controls, lr0, t_gpu,
+                           ref, stat_noise)
+
+    return PendingCheck(name, judge, job)
+
+
+def judge_steps(model, batch, card, control_steps, controls, lr0, t_gpu, ref,
+                stat_noise) -> dict:
+    """``check_step_with_controls``' verdict on the card's steps and the CPU's
+    reference ``ref`` (``cpu_reference``)."""
+    reference, noise_grads, noise_states = ref["reference"], ref["noise_grads"], \
+        ref["noise_states"]
+    loss_cpu, t_cpu, lib_cpu = reference[0], ref["seconds"], reference[3]
     worst, failures, leaves = compare_steps(model, card, reference, noise_grads, lr0,
                                             noise_states)
     lib_gpu = card[3]
@@ -1276,7 +1526,8 @@ def check_step_with_controls(model, batch, device, cfg, n_steps_total, controls,
         f"({GRAD_NOISE_MARGIN}x the noise floor or 1e-4 of the leaf's largest gradient); "
         f"worst parameter error {worst['param_err_over_allowed']:.3f} of allowed; BN "
         f"statistics rel err {worst['stat_rel_err']:.2e} (tol 1e-4); one step on the "
-        f"card {t_gpu:.1f} s, {1 + len(NOISE_TERMS)} on the CPU {t_cpu:.1f} s")
+        f"card {t_gpu:.1f} s, {1 + len(NOISE_TERMS)} on the CPU {t_cpu:.1f} s (in the CPU "
+        f"lane)")
     for ratio, k, err, scale, nz in sorted(leaves, reverse=True)[:3]:
         log(f"    gradient {k}: error {err:.3e} = {ratio:.3f} of tolerance; largest "
             f"gradient {scale:.3e}, noise floor {nz:.3e}")
@@ -1493,14 +1744,14 @@ def phase_train(device) -> dict:
             check = check_step_against_cpu(snapshot, model_bf16,
                                            first_frames(batch, PP_CHECK_BATCH), device, cfg,
                                            total_steps)
-        log(f"  the check ran under deterministic algorithms; ops without a deterministic "
-            f"version: {named or 'none'}")
+        log(f"  the check's card steps ran under deterministic algorithms; ops without a "
+            f"deterministic version: {named or 'none'}; its CPU copy runs in the CPU lane")
         del model_bf16
     return dict(launches=launches, losses=losses, step_ms=step_ms, step_s=step_s,
                 profiled_step=profiled,
                 timed_s=timed_s, frames_per_s=frames_per_s, checkpoint_s=ckpt_s,
                 frames_per_s_without_checkpoints=frames_per_s_no_ckpt, peak_gib=peak_gib,
-                **check), cfg, model, snapshot.state_dict()
+                check=check), cfg, model, snapshot.state_dict()
 
 
 # ---------------------------------------------------------------------------
@@ -1598,12 +1849,27 @@ def explain_kept_difference(card_kept, cpu_kept, scores, nms_boxes, test_cfg):
     return counts, [c for c in diff if c not in reasons]
 
 
+def knife_edge_detail(c, card_kept, cpu_kept, card_scores, scores, nms_boxes) -> str:
+    """What an unexplained candidate, kept on one side only, looks like: its score on
+    both sides, each side's last kept score (on the CPU's scores), and its largest BEV
+    IoU with another box kept on either side."""
+    from tdal_torch.core.iou import boxes_iou_bev
+
+    on_card = c in set(card_kept.tolist())
+    kept = sorted((set(card_kept.tolist()) | set(cpu_kept.tolist())) - {c})
+    iou = boxes_iou_bev(nms_boxes[[c]], nms_boxes[kept]).cpu()[0]
+    j = int(iou.argmax())
+    return (f"candidate {c} kept on the {'card' if on_card else 'CPU'} only: score card "
+            f"{float(card_scores[c]):.7f}, CPU {float(scores[c]):.7f}; last kept score card "
+            f"{float(scores[card_kept].min()):.7f} ({len(card_kept)} kept), CPU "
+            f"{float(scores[cpu_kept].min()):.7f} ({len(cpu_kept)}); largest IoU "
+            f"{float(iou[j]):.5f} with {kept[j]} (score {float(scores[kept[j]]):.7f})")
+
+
 def check_infer_against_cpu(model, points, test_cfg) -> dict:
     """One batch through ``model`` on the card and through a CPU copy (plain layers):
     the decoded maps within ``MAP_TOL``, and per frame the kept sets equal but for
     knife-edge candidates, which are counted."""
-    from tdal_torch.models.center_head import decode_preds
-
     cpu_model = copy.deepcopy(model).cpu().eval()
     model.eval()
     with torch.no_grad():
@@ -1611,12 +1877,39 @@ def check_infer_against_cpu(model, points, test_cfg) -> dict:
         maps_cpu = cpu_model(points.cpu())
         cpu_s = time.perf_counter() - t0
         maps_card = model(points)
+    out = compare_maps(maps_card, maps_cpu, test_cfg)
+    out["cpu_forward_s"] = cpu_s
+    log(f"  one batch on the card against a CPU copy: decoded maps' errors (tol {MAP_TOL:.0e}) "
+        + ", ".join(f"{k} {v:.3e}" for k, v in out["map_rel_err"].items())
+        + f"; {out['kept_ref']} boxes kept on the CPU, {out['differing']} kept on one side "
+        f"only: knife edges {out['knife_edge']}, unexplained {out['unexplained']}; CPU "
+        f"forward {cpu_s:.1f} s")
+    failures = [k for k, v in out["map_rel_err"].items()
+                if not v <= MAP_TOL and k != "heading (rad)"]
+    if failures or out["unexplained"]:
+        raise AssertionError(f"inference on the card differs from the CPU's: maps {failures}, "
+                             f"kept sets {out['unexplained_at'][:10]}")
+    out["kept_cpu"] = out.pop("kept_ref")
+    del out["unexplained_at"]
+    return out
+
+
+def compare_maps(maps, maps_ref, test_cfg) -> dict:
+    """Two forwards' head maps (each decoded where it lies), held as phase 7 holds the
+    card against the CPU: the decoded maps' relative errors (``map_rel_err``, each against
+    ``MAP_TOL``), and per frame the kept sets, equal but for knife-edge candidates
+    (judged on ``maps_ref``'s side): the boxes kept on the reference side, those kept on
+    one side only, their knife-edge reasons and the unexplained ones."""
+    from tdal_torch.models.center_head import decode_preds
+
+    with torch.no_grad():
         decoded = [(decode_preds(mc, test_cfg), decode_preds(mp, test_cfg))
-                   for mc, mp in zip(maps_card, maps_cpu)]
+                   for mc, mp in zip(maps, maps_ref)]
+    maps_cpu = [{k: v.cpu() for k, v in m.items()} for m in maps_ref]
     worst = {}
     counts, unexplained, n_diff, n_kept = {}, [], 0, 0
     for task, ((bc, hc), (bp, hp)) in enumerate(decoded):
-        bc, hc = bc.cpu(), hc.cpu()
+        bc, hc, bp, hp = bc.cpu(), hc.cpu(), bp.cpu(), hp.cpu()
         errs = {"hm": (hc - hp).abs() / hp.abs().clamp_min(1)}
         cols = ["x", "y", "z", "l", "w", "h", "vx", "vy"][: bc.shape[-1] - 1]
         for i, name in enumerate(cols):
@@ -1628,30 +1921,23 @@ def check_infer_against_cpu(model, points, test_cfg) -> dict:
             worst[name] = max(worst.get(name, 0.0), float(e.max()))
         worst["heading (rad)"] = max(worst.get("heading (rad)", 0.0), float(angle.abs().max()))
         for f in range(bc.shape[0]):
-            kc, _, _ = kept_candidates(bc[f], hc[f], test_cfg)
+            kc, sc, _ = kept_candidates(bc[f], hc[f], test_cfg)
             kp, sp, boxes_p = kept_candidates(bp[f], hp[f], test_cfg)
             c, u = explain_kept_difference(kc, kp, sp, boxes_p, test_cfg)
             n_kept += len(kp)
             n_diff += len(set(kc.tolist()) ^ set(kp.tolist()))
             for k, v in c.items():
                 counts[k] = counts.get(k, 0) + v
-            unexplained += [(task, f, int(i)) for i in u]
-    out = dict(map_rel_err=worst, kept_cpu=n_kept, differing=n_diff, knife_edge=counts,
-               unexplained=len(unexplained), cpu_forward_s=cpu_s)
-    log(f"  one batch on the card against a CPU copy: decoded maps' errors (tol {MAP_TOL:.0e}) "
-        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
-        + f"; {n_kept} boxes kept on the CPU, {n_diff} kept on one side only: knife edges "
-        f"{counts}, unexplained {len(unexplained)}; CPU forward {cpu_s:.1f} s")
-    failures = [k for k, v in worst.items() if not v <= MAP_TOL and k != "heading (rad)"]
-    if failures or unexplained:
-        raise AssertionError(f"inference on the card differs from the CPU's: maps {failures}, "
-                             f"kept sets {unexplained[:10]}")
-    return out
+            unexplained += [(task, f, int(i), knife_edge_detail(int(i), kc, kp, sc, sp, boxes_p))
+                            for i in u]
+    return dict(map_rel_err=worst, kept_ref=n_kept, differing=n_diff, knife_edge=counts,
+                unexplained=len(unexplained), unexplained_at=unexplained)
 
 
-def phase_infer(device, cfg, trained) -> dict:
+def phase_infer(device, cfg, trained) -> tuple:
     """``run_inference`` (plain and double-flip) and ``evaluate_detector`` at the Waymo PP
-    config's test settings with phase 6's weights, on a synthetic test split."""
+    config's test settings with phase 6's weights, on a synthetic test split. Returns
+    the readings and the points of the batch held against the CPU (phase 14's)."""
     from tdal_torch.data.detection import DetectionDataset
     from tdal_torch.data.synthetic import make_synthetic_dataset
     from tdal_torch.models.builder import (
@@ -1730,6 +2016,7 @@ def phase_infer(device, cfg, trained) -> dict:
             log(f"  one batch of {INFER_BATCH}: forward {out['forward_ms_per_batch']:.1f} ms, "
                 f"decode + NMS {out['nms_ms_per_frame']:.1f} ms per frame (medians of 3)")
             out["cpu_check"] = check_infer_against_cpu(model, points, test_cfg)
+            test_points = points.cpu()
 
             t0 = time.perf_counter()
             out["ap"] = evaluate_detector(state, ds, test_cfg, INFER_BATCH, logger)
@@ -1737,7 +2024,7 @@ def phase_infer(device, cfg, trained) -> dict:
                 f"s): " + ", ".join(f"{k} {v:.4f}" for k, v in out["ap"].items()))
     finally:
         logger.removeHandler(timing)
-    return out
+    return out, test_points
 
 
 # ---------------------------------------------------------------------------
@@ -2514,12 +2801,12 @@ def phase_voxelnet_train(device, root: Path) -> tuple:
          # against the statistics' own noise floor
          "unbiased running variance": (model, unbiased_running_variance,
                                        "stat_err_over_tol")},
-        stat_noise=True)
+        stat_noise=True, name="phase 9 (a)'s card-vs-CPU step")
     out = dict(launches=launches, launches_per_step=VN_LAUNCHES, losses=losses,
                step_ms=step_ms, step_s=step_s, timed_s=timed_s, frames_per_s=frames_per_s,
                backbone_ms=backbone_ms, peak_gib=peak_gib, occupancy=occupancy,
                points_per_frame=n_points, profiled_step=profiled,
-               check_batch=VN_CHECK_BATCH, **check)
+               check_batch=VN_CHECK_BATCH, check=check)
     return out, cfg, model, ds, snapshot
 
 
@@ -3042,7 +3329,11 @@ def check_dp_steps(model, batch, cfg, n_steps_total, device, devices, backend, r
         if not readings[name]["grad_err_over_tol"] > 1:
             failures.append(f"control {name}: its gradients pass the comparison")
     out = dict(readings=readings, loss_dp=steps[None][0], loss_single=single[0],
-               single_s=t_single, ranks_s=t_ranks, devices=devices, backend=backend)
+               single_s=t_single, ranks_s=t_ranks, devices=devices, backend=backend,
+               # for phase 14 (b): the same step, floor and batch (popped before printing)
+               reference=dict(single=single, noise_grads=noise_grads,
+                              noise_states=noise_states, batch=batch,
+                              n_steps_total=n_steps_total))
     if labeler is not None:
         lab = ranks[0]["labeler"]
         failures += [f"(c) {f}" for f in lab["failures"]]
@@ -3439,7 +3730,7 @@ def dcn_head_alone(model, batch, device, code_weights) -> dict:
                 input_shape=list(x.shape), input_dtype=str(x.dtype))
 
 
-def phase_dcn(device, overlap=None) -> dict:
+def phase_dcn(device) -> dict:
     """Phase 12: the two-sweep velocity VoxelNet config with ``dcn_head`` at full width,
     bf16 as the config declares. (a) ``train_detector`` at batch 4: a warm epoch under
     ``deterministic`` (its end is the check's snapshot), then ``DCN_TIMED`` steps with the
@@ -3448,9 +3739,8 @@ def phase_dcn(device, overlap=None) -> dict:
     ``deterministic``, as phase 9 (a) holds its own; a sampler with ``trunc`` in place
     of ``floor`` must fail it; the sampling coordinates on a knife edge counted.
     (c) ``run_inference`` at the config's test settings over 8 frames, and one frame in
-    f32 against a CPU copy. ``overlap``: a function called as (b) begins, whose CPU
-    work leaves the card idle, that starts work of its own on the card and returns a
-    function that waits for it; called before (c)."""
+    f32 against a CPU copy. (b)'s CPU copy runs in the CPU lane: ``out["check"]``
+    holds its ``PendingCheck`` under ``pending``."""
     from tdal_torch.data.detection import DetectionDataset, collate_detection
     from tdal_torch.models.builder import (
         build_assigner, build_detector, build_test_cfg, build_voxel_config,
@@ -3573,7 +3863,6 @@ def phase_dcn(device, overlap=None) -> dict:
         f32 = build_detector(dcn_model_cfg(cfg, "float32"), voxel_cfg, device="cpu", seed=0)
         f32.load_state_dict(snapshot.state_dict())
         check_batch = first_frames(batch, DCN_CHECK_BATCH)
-        wait = overlap() if overlap is not None else None
         edges = knife_edges(f32, torch.as_tensor(check_batch["points"]), device)
         log(f"  sampling coordinates within {KNIFE_EDGE:g} of an integer, card / CPU, and "
             f"coordinates whose floor differs: " + "; ".join(
@@ -3583,14 +3872,14 @@ def phase_dcn(device, overlap=None) -> dict:
             check = check_step_with_controls(
                 f32, check_batch, device, cfg, total_steps,
                 {"trunc in place of floor": (f32, trunc_sampling, "grad_err_over_tol")},
-                stat_noise=True)
-        log(f"  the check ran under deterministic algorithms; ops without a deterministic "
-            f"version: {named_check or 'none'}")
+                stat_noise=True, name="phase 12 (b)'s card-vs-CPU step",
+                deterministic_reference=True)
+        log(f"  the check's card steps ran under deterministic algorithms; ops without a "
+            f"deterministic version: {named_check or 'none'}; its CPU copy runs in the "
+            f"CPU lane")
         out["check"] = dict(knife_edges=edges, check_batch=DCN_CHECK_BATCH,
-                            nondeterministic_ops=named_check, **check)
+                            nondeterministic_ops=named_check, pending=check)
 
-        if wait is not None:
-            wait()
         # (c) inference at the test settings, bf16; one frame in f32 against the CPU
         vox_test = build_voxel_config(cfg.voxel_generator, train=False)
         infer = build_detector(model_cfg, vox_test, device=device, seed=0)
@@ -3915,6 +4204,248 @@ def phase_tdal_checkpoint(device) -> dict:
     return dict(read=read, serve=serve, seconds=time.perf_counter() - t_start)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: BEV spatial partitioning on the card
+# ---------------------------------------------------------------------------
+
+# A whole-script run by phase from before the CPU lane (an NVIDIA H100 80GB HBM3 at
+# 700.00 W, with the CPU copies of the card-vs-CPU checks inside phases 6, 9 and 12),
+# printed beside this run's as text, never as this run's numbers
+INLINE_CARD = "NVIDIA H100 80GB HBM3 at 700.00 W"
+INLINE_SECONDS = {"2": 30.0, "3": 2.7, "4": 4.8, "5": 27.7, "6": 327.8, "7": 32.4, "8": 63.5,
+                "9": 180.1, "10": 60.8, "11": 17.3, "12": 237.2, "13": 20.5}
+SP_WORLD = 2  # two ranks: a spatial group sharing the card (gloo), or two cards (NCCL)
+SP_FORWARDS = 4  # (a)'s forward timed: medians of the last 3 of 4, synchronised
+
+
+def sp_forward_ms(model, points) -> tuple:
+    """``model``'s eval forward of ``points``: (maps, median ms of the last 3 of
+    ``SP_FORWARDS``, synchronised)."""
+    times = []
+    with torch.no_grad():
+        for _ in range(SP_FORWARDS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            maps = model(points)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    return maps, 1e3 * statistics.median(times[1:])
+
+
+def _sp_rank(mesh, job_file, out_dir):
+    """A spawned rank of phase 14: (a) the eval forward with the BEV stack partitioned
+    over the spatial group (the rows this rank holds at each RPN level, the forward's
+    ms, rank 0's gathered maps); (b) where the job asks, ``step_with_grads`` partitioned,
+    sound and under each of ``SP_CONTROLS``, under ``deterministic``, with the conv
+    launch counters from 0 for the sound step. Rank 0 saves its steps, every rank its
+    state after the sound step and its launches."""
+    from tdal_torch.ops import conv3x3 as cv
+    from tdal_torch.parallel.controls import SP_CONTROLS, control
+    from tdal_torch.parallel.mesh import spatial_sharding, spatial_slab
+    from tdal_torch.runtime.config import Config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    job = torch.load(job_file, weights_only=False)
+    model = copy.deepcopy(job["model"]).to(mesh.device).eval()
+    model.bev_sharding = spatial_sharding(mesh)
+    slab = spatial_slab(mesh, int(model.voxel_cfg.grid_size[1]),
+                        int(np.prod(model.rpn.ds_layer_strides)))
+    rows, level = {}, slab
+    for stride in (1, *model.rpn.ds_layer_strides[1:]):
+        level = level.scaled(1, stride)
+        rows[level.height] = (level.start, level.stop)
+    maps, fwd_ms = sp_forward_ms(model, job["points"].to(mesh.device))
+    out = dict(rows=rows, forward_ms=fwd_ms)
+    if mesh.rank == 0:
+        out["maps"] = [{k: v.cpu() for k, v in m.items()} for m in maps]
+    if job["train"] is not None:
+        cfg = Config(job["train"]["cfg"])
+        steps = {}
+        for name in (None, *SP_CONTROLS):
+            for counts in (cv.launches, cv.halo_launches):
+                counts.update(dict.fromkeys(counts, 0))
+            with deterministic(), control(name):
+                steps[name] = step_with_grads(job["train"]["model"], job["train"]["batch"],
+                                              mesh.device, cfg, job["train"]["n_steps_total"],
+                                              mesh=mesh, spatial=True)
+            if name is None:
+                out.update(launches=dict(cv.launches), halo_launches=dict(cv.halo_launches))
+        out["state"] = steps[None][2]
+        if mesh.rank == 0:
+            out["steps"] = steps
+    torch.save(out, Path(out_dir) / f"{mesh.rank}.pt")
+
+
+def sp_ranks(job: dict, devices, backend, root: Path) -> list:
+    """``_sp_rank`` in ``len(devices)`` spawned ranks of one spatial group."""
+    from tdal_torch.parallel.mesh import spawn
+
+    root.mkdir(parents=True, exist_ok=True)
+    torch.save(job, root / "job.pt")
+    spawn(_sp_rank, (str(root / "job.pt"), str(root)), devices=devices, backend=backend,
+          spatial=len(devices))
+    return [torch.load(root / f"{r}.pt", weights_only=False) for r in range(len(devices))]
+
+
+def sp_maps_line(tag, got, want, test_cfg) -> dict:
+    """(a)'s verdict on one run: the gathered maps against the one-process forward's,
+    held by ``compare_maps`` (``MAP_TOL``; kept sets equal but for knife edges)."""
+    cmp = compare_maps(got, want, test_cfg)
+    log(f"    {tag}: the gathered maps against the one-process forward, decoded (tol "
+        f"{MAP_TOL:.0e}): " + ", ".join(f"{k} {v:.3e}" for k, v in cmp["map_rel_err"].items())
+        + f"; {cmp['kept_ref']} boxes kept by one process, {cmp['differing']} on one side "
+        f"only: knife edges {cmp['knife_edge']}, unexplained {cmp['unexplained']}")
+    failures = [k for k, v in cmp["map_rel_err"].items()
+                if not v <= MAP_TOL and k != "heading (rad)"]
+    if failures or cmp["unexplained"]:
+        raise AssertionError(f"phase 14 {tag}: the partitioned forward differs from one "
+                             f"process: maps {failures}, kept sets {cmp['unexplained_at'][:10]}")
+    del cmp["unexplained_at"]
+    return cmp
+
+
+def phase7_points(cfg, device) -> torch.Tensor:
+    """The first ``INFER_BATCH`` of phase 7's test frames (its synthetic split at the
+    config's test settings), on the CPU: phase 14's batch when phase 7 did not run."""
+    from tdal_torch.data.detection import DetectionDataset
+    from tdal_torch.data.synthetic import make_synthetic_dataset
+    from tdal_torch.models.builder import build_assigner, build_detector, build_voxel_config
+
+    voxel_cfg = build_voxel_config(cfg.voxel_generator, train=False)
+    model = build_detector(cfg.model, voxel_cfg, device="cpu", seed=0)
+    with tempfile.TemporaryDirectory() as tmp:
+        infos, _ = make_synthetic_dataset(Path(tmp) / "test", **PP_TEST_DATA)
+        ds = DetectionDataset(infos, cfg.class_names, build_assigner(cfg.assigner, model),
+                              voxel_cfg, mode="test", max_points=cfg.data["val"]["max_points"])
+        return torch.as_tensor(np.stack([ds[i]["points"] for i in range(INFER_BATCH)]))
+
+
+def phase_spatial(device, pp_state, points, reference=None) -> dict:
+    """Phase 14: BEV spatial partitioning of the Waymo PP config at full width (468^2
+    canvas, RPN (3, 5, 5) at 64/128/256) with phase 6's snapshot ``pp_state``, f32, TF32
+    off, on two gloo ranks sharing the card (NCCL refuses two ranks on one device).
+    First ``conv_halo_twin_checks`` at the phase's slab shapes. (a) ``points`` (a batch of 4 of phase 7's test frames) through the eval forward:
+    each rank's rows at every RPN level, rank 0's gathered maps against the
+    one-process forward on the card (``compare_maps``). (b) One train step of the
+    global batch of 4, both ranks holding it whole, under ``deterministic``, against the
+    single-process step on the card (``reference``: phase 10 (a)'s, the same step, floor
+    and batch; measured here without it), held by ``compare_steps`` with its noise
+    floor; each reading printed as a share of its tolerance; both ranks' states equal;
+    both ``SP_CONTROLS`` must fail on the gradients; each rank launches phase 6's
+    counts, every one in the halo form. (c) Where the machine has two cards, (a) over
+    NCCL across two, its forward's ms a batch and frames/s beside one card's."""
+    from tdal_torch.data.detection import collate_detection
+    from tdal_torch.models.builder import build_test_cfg, build_voxel_config
+    from tdal_torch.parallel.controls import SP_CONTROLS
+
+    t_start = time.perf_counter()
+    log(f"  the conv kernels' halo forms against their twins on this phase's row slabs "
+        f"({SP_WORLD} ranks), f32, tolerances as phase 5's")
+    out = {"halo_twins": conv_halo_twin_checks(device)}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        cfg, model, _, ds, total_steps = pp_training(root / "data")
+        model = model.cpu()
+        model.load_state_dict(pp_state)
+        if reference is None:
+            batch = first_frames(collate_detection([ds[i] for i in range(PP_BATCH)]), PP_BATCH)
+            with deterministic():
+                single = step_with_grads(model, batch, device, cfg, total_steps)
+                noise = noise_steps_of(model, batch, device, cfg, total_steps)
+            reference = dict(single=single, noise_grads=[n[1] for n in noise],
+                             noise_states=[n[2] for n in noise], batch=batch,
+                             n_steps_total=total_steps, source="measured here")
+            del noise
+        # (a) at the test settings, as phase 7's forward; (b) at the training ones
+        vox_test = build_voxel_config(cfg.voxel_generator, train=False)
+        test_cfg = build_test_cfg(cfg.test_cfg, model, vox_test)
+        eval_model = copy.deepcopy(model)
+        eval_model.voxel_cfg = vox_test
+        one = copy.deepcopy(eval_model).to(device).eval()
+        maps_one, one_ms = sp_forward_ms(one, points.to(device))
+        del one
+        train_model = model
+        job = dict(model=eval_model, points=points, train=dict(
+            model=train_model, cfg=cfg.to_dict(), batch=reference["batch"],
+            n_steps_total=reference["n_steps_total"]))
+        t0 = time.perf_counter()
+        ranks = sp_ranks(job, ["cuda:0"] * SP_WORLD, "gloo", root / "ranks")
+        ranks_s = time.perf_counter() - t0
+
+        # (a)
+        log(f"  (a) the eval forward of {len(points)} of phase 7's test frames on "
+            f"{SP_WORLD} gloo ranks sharing the card ({ranks_s:.1f} s with the spawn and the "
+            f"train steps of (b))")
+        for r, res in enumerate(ranks):
+            log(f"    rank {r}'s rows: " + ", ".join(
+                f"{b - a} [{a}, {b}) of {height}" for height, (a, b) in res["rows"].items()))
+        out["rows"] = [res["rows"] for res in ranks]
+        out["a"] = sp_maps_line("two ranks on one card", ranks[0]["maps"], maps_one, test_cfg)
+        out["a"].update(forward_ms=ranks[0]["forward_ms"], one_process_forward_ms=one_ms)
+        log(f"    the partitioned forward {ranks[0]['forward_ms']:.1f} ms a batch on one card "
+            f"(two ranks sharing it) beside {one_ms:.1f} ms in one process")
+
+        # (b)
+        single = reference["single"]
+        steps = ranks[0]["steps"]
+        as_card = lambda s: (s[0], s[1], s[2], s[4])  # noqa: E731
+        ref = (single[0], single[1], single[2], single[4])
+        worst, failures, leaves = compare_steps(train_model, as_card(steps[None]), ref,
+                                                reference["noise_grads"], single[3],
+                                                reference["noise_states"])
+        readings = {"sound": worst}
+        log(f"  (b) one train step at a global batch of {len(reference['batch']['points'])}, "
+            f"both ranks holding it, against one process on the card ("
+            + reference["source"] + f"): loss {steps[None][0]:.6f} / {single[0]:.6f}; shares of the tolerances: "
+            f"{share_line(worst)}")
+        for ratio, k, err, scale, nz in sorted(leaves, reverse=True)[:3]:
+            log(f"    gradient {k}: error {err:.3e} = {ratio:.3f} of tolerance; largest "
+                f"gradient {scale:.3e}, noise floor {nz:.3e}")
+        for name in SP_CONTROLS:
+            readings[name], c_fail, _ = compare_steps(
+                train_model, as_card(steps[name]), ref, reference["noise_grads"], single[3],
+                reference["noise_states"])
+            log(f"  control ({name}): {len(c_fail)} failures; {share_line(readings[name])}")
+            if not readings[name]["grad_err_over_tol"] > 1:
+                failures.append(f"control {name}: its gradients pass the comparison")
+        for r, res in enumerate(ranks[1:], 1):
+            unequal = [k for k, v in ranks[0]["state"].items()
+                       if not torch.equal(v, res["state"][k])]
+            if unequal:
+                failures.append(f"rank {r}'s state differs from rank 0's: {unequal[:3]}")
+        for r, res in enumerate(ranks):
+            log(f"    rank {r}: launches {res['launches']}, in the halo form "
+                f"{res['halo_launches']}")
+            if res["launches"] != PP_LAUNCHES or res["halo_launches"] != PP_LAUNCHES:
+                failures.append(f"rank {r}: launches {res['launches']} (halo form "
+                                f"{res['halo_launches']}), expected {PP_LAUNCHES} all in the "
+                                "halo form")
+        if failures:
+            raise AssertionError("phase 14 (b): " + "; ".join(failures[:10]))
+        out["b"] = dict(readings=readings, loss_sp=steps[None][0], loss_single=single[0],
+                        launches=[res["launches"] for res in ranks],
+                        halo_launches=[res["halo_launches"] for res in ranks],
+                        ranks_s=ranks_s)
+
+        # (c)
+        if torch.cuda.device_count() >= 2:
+            job["train"] = None
+            two = sp_ranks(job, ["cuda:0", "cuda:1"], "nccl", root / "two_cards")
+            out["c"] = sp_maps_line("two cards over NCCL", two[0]["maps"], maps_one, test_cfg)
+            ms = two[0]["forward_ms"]
+            out["c"].update(forward_ms=ms, frames_per_s=len(points) / ms * 1e3,
+                            one_card_frames_per_s=len(points) / one_ms * 1e3)
+            log(f"  (c) two cards over NCCL: the forward {ms:.1f} ms a batch of {len(points)}, "
+                f"{out['c']['frames_per_s']:.2f} frames/s against "
+                f"{out['c']['one_card_frames_per_s']:.2f} on one card ({one_ms / ms:.3f}x)")
+        else:
+            log("  one card: (c) not run")
+            out["c"] = "one card: not run"
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--noise-probe", type=int, default=0, metavar="STATES",
@@ -3932,6 +4463,8 @@ def main() -> int:
                         help="build, then run only phase 11 from a fresh detector")
     parser.add_argument("--dcn-only", action="store_true",
                         help="build, then run only phase 12")
+    parser.add_argument("--sp-only", action="store_true",
+                        help="build, then run only phase 14 from phase 6's snapshot")
     parser.add_argument("--import-only", action="store_true",
                         help="run only phase 13: read tdal's checkpoint fixture without "
                              "orbax and serve it (no kernel build: it launches none)")
@@ -3961,7 +4494,7 @@ def main() -> int:
     seconds, t_phase = {}, time.perf_counter()
     t_script = t_phase
 
-    def lap(phase: int):
+    def lap(phase):
         """Seconds since the previous phase ended, kept under the phase's number."""
         nonlocal t_phase
         now = time.perf_counter()
@@ -3991,7 +4524,8 @@ def main() -> int:
     log("phase 2 build")
     t0 = time.perf_counter()
     lib = kernels()
-    log(f"  built the kernels with nvcc in {time.perf_counter() - t0:.1f} s")
+    log(f"  the kernels built with nvcc (or a build of the same sources loaded) in "
+        f"{time.perf_counter() - t0:.1f} s")
     regs = [int(w) for w in re.findall(r"Used (\d+) registers", lib.build_log)]
     spills = sum(int(w) for w in re.findall(r"(\d+) bytes spill stores", lib.build_log))
     log(f"  ptxas: {len(regs)} kernels, at most {max(regs)} registers a thread, "
@@ -4028,12 +4562,15 @@ def main() -> int:
         return 0
     if args.voxelnet_only:
         log("phase 9 VoxelNet and the two-stage detector (alone)")
-        print(json.dumps(phase_voxelnet(device), default=str))
+        voxelnet = phase_voxelnet(device)
+        voxelnet["train"].update(voxelnet["train"].pop("check").result())
+        print(json.dumps(voxelnet, default=str))
         return 0
     if args.pp_only:
         log("phase 6 PointPillars training on the Waymo config (alone)")
         t0 = time.perf_counter()
         train = phase_train(device)[0]
+        train.update(train.pop("check").result())
         log(f"  phase 6 seconds: {time.perf_counter() - t0:.1f}")
         print(json.dumps({k: v for k, v in train.items() if k != "profiled_step"},
                          default=str))
@@ -4049,6 +4586,7 @@ def main() -> int:
         log("phase 12 the deformable head on the two-sweep velocity VoxelNet (alone)")
         t0 = time.perf_counter()
         dcn = phase_dcn(device)
+        dcn["check"].update(dcn["check"].pop("pending").result())
         log(f"  phase 12 seconds: {time.perf_counter() - t0:.1f}; peak memory "
             f"{dcn['peak_gib']:.2f} GiB")
         print(json.dumps(dcn, default=str))
@@ -4059,9 +4597,39 @@ def main() -> int:
             model = pp_snapshot(Path(tmp))[1]
             snapshot = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
         del model
-        print(json.dumps(phase_data_parallel(device, snapshot), default=str))
+        dp = phase_data_parallel(device, snapshot)
+        dp["a"].pop("reference")
+        print(json.dumps(dp, default=str))
+        return 0
+    if args.sp_only:
+        log("phase 14 BEV spatial partitioning (alone, from phase 6's snapshot)")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg, model = pp_snapshot(Path(tmp))[:2]
+            snapshot = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+        del model
+        sp = phase_spatial(device, snapshot, phase7_points(cfg, device))
+        log(f"  phase 14 seconds: {time.perf_counter() - t0:.1f}")
+        print(json.dumps(sp, default=str))
+        log(f"card: {kind} | {smi}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
         return 0
 
+    global LANE
+    LANE = cpu_lane()
+    try:
+        return whole_run(device, kind, smi, seconds, lap, t_script, fp)
+    except BaseException:
+        for proc in multiprocessing.active_children():  # the lane, maybe mid-job
+            proc.kill()
+        raise
+    finally:
+        LANE.shutdown(cancel_futures=True)
+
+
+def whole_run(device, kind, smi, seconds, lap, t_script, fp) -> int:
+    """Phases 3-16 of the whole script, after the device and the build (phases 1-2)."""
     lap(2)
 
     log("phase 3 kernels against their twins")
@@ -4073,10 +4641,10 @@ def main() -> int:
     chain = phase_chain(device)
     lap(4)
 
-    log("phase 5 conv kernels against their twins (cuDNN's times come in phase 12)")
+    log("phase 5 conv kernels against their twins (cuDNN's times come at the end)")
     from tdal_torch.ops import conv3x3 as cv
 
-    cres = phase_conv(device)
+    cres, chalo = phase_conv(device)
     lap(5)
     log(f"  launches in phase 5 (checks and timing, not counted below): {dict(cv.launches)}")
 
@@ -4085,7 +4653,7 @@ def main() -> int:
     lap(6)
 
     log("phase 7 PointPillars inference on the Waymo config")
-    infer = phase_infer(device, pp_cfg, pp_model)
+    infer, infer_points = phase_infer(device, pp_cfg, pp_model)
     lap(7)
 
     log("phase 8 the offboard chain: labeler training, then the detector-fed chain")
@@ -4101,6 +4669,7 @@ def main() -> int:
 
     log("phase 10 data parallelism: two ranks on one card, one NCCL rank, two cards")
     dp = phase_data_parallel(device, pp_state, train["frames_per_s"])
+    sp_reference = dict(dp["a"].pop("reference"), source="phase 10 (a)'s step and floor")
     lap(10)
 
     log("phase 11 the port's data preparation and GT-aug training on the Waymo PP config")
@@ -4109,18 +4678,32 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     log("phase 12 the deformable head on the two-sweep velocity VoxelNet")
-    library = LibraryTimes()
-    try:
-        dcn = phase_dcn(device, overlap=library.start)
-    finally:
-        library.stop()
+    dcn = phase_dcn(device)
     lap(12)
-    log("phase 5's kernels beside cuDNN's times")
-    attach_library_times(cres, library.ms)
 
     log("phase 13 a checkpoint of tdal's, read without orbax and served on the card")
     imported = phase_tdal_checkpoint(device)
     lap(13)
+
+    log("phase 14 BEV spatial partitioning: two ranks on one card, two cards")
+    sp = phase_spatial(device, pp_state, infer_points, sp_reference)
+    del sp_reference
+    lap(14)
+
+    log("the card-vs-CPU checks of phases 6, 9 and 12, their CPU copies from the CPU lane "
+        "(cuDNN's times for phase 5 meanwhile, on the idle card)")
+    library = LibraryTimes()
+    try:
+        wait_library = library.start()
+        train.update(train.pop("check").result())
+        voxelnet["train"].update(voxelnet["train"].pop("check").result())
+        dcn["check"].update(dcn["check"].pop("pending").result())
+        wait_library()
+    finally:
+        library.stop()
+    lap("checks")
+    log("phase 5's kernels beside cuDNN's times")
+    attach_library_times(cres, library.ms)
 
     entries = []
     for name, by_case in kres.items():
@@ -4157,7 +4740,8 @@ def main() -> int:
             replaces=PROTO["replaces"] if proto else CONV_REPLACES[name],
             launches=(offboard["conv_launches"][key] + voxelnet["train"]["launches"][key]
                       + dp["b"]["launches"][key] + prep["launches"][key]
-                      + dcn["train"]["launches"][key]),
+                      + dcn["train"]["launches"][key]
+                      + sum(r[key] for r in sp["b"]["launches"])),
             launches_by_path={"phase 6 timed steps": train["launches"][key],
                               "phase 8 detector rounds": offboard["conv_launches"][key],
                               "phase 9 VoxelNet timed steps":
@@ -4165,11 +4749,14 @@ def main() -> int:
                               "phase 10 (b) timed steps, one NCCL rank":
                                   dp["b"]["launches"][key],
                               "phase 11 GT-aug timed steps": prep["launches"][key],
-                              "phase 12 dcn VoxelNet steps": dcn["train"]["launches"][key]},
+                              "phase 12 dcn VoxelNet steps": dcn["train"]["launches"][key],
+                              "phase 14 (b) partitioned step, both ranks, halo form":
+                                  sum(r[key] for r in sp["b"]["halo_launches"])},
             max_abs_err=main_case["max_abs_err"], ms=main_case["ms"],
             plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
             bound_by=main_case["bound_by"], library_ms=main_case["library_ms"],
-            shape=f"{case}: B=4 468x468 64->64", **extra,
+            shape=f"{case}: B=4 468x468 64->64",
+            halo_form=None if proto else dict(chalo[name], halo=[1, 1]), **extra,
         ))
     # derived, not traced: phase 5's f32 kernel times at each conv site of the step
     kernel_ms = 0.0
@@ -4190,8 +4777,13 @@ def main() -> int:
     log(f"  data preparation summary: {json.dumps(prep, default=str)}")
     log(f"  deformable head summary: {json.dumps(dcn, default=str)}")
     log(f"  tdal checkpoint summary: {json.dumps(imported, default=str)}")
-    log(f"  seconds by phase (phase 2 from the start): {json.dumps(seconds)}; the whole "
+    log(f"  spatial partitioning summary: {json.dumps(sp, default=str)}")
+    log(f"  seconds by phase (phase 2 from the start; \"checks\": the wait for the CPU lane "
+        f"and the judging of phases 6, 9 and 12's checks): {json.dumps(seconds)}; the whole "
         f"script {time.perf_counter() - t_script:.1f}")
+    log(f"  recorded, not this run's: a run without the CPU lane on {INLINE_CARD}, the CPU "
+        f"copies inside phases 6, 9 and 12: {json.dumps(INLINE_SECONDS)}; the whole script "
+        f"{sum(INLINE_SECONDS.values()):.1f}")
     log(f"card: {kind} | {smi}")
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,15 @@ run by cuDNN as tdal leaves it to XLA; other depths as ``SepHead`` says. With
 the reference's default ``BatchNorm2d``: eps 1e-5, momentum 0.1.
 
 Under an active data-parallel mesh the losses' normalizers (the focal loss's positive
-count, the reg loss's mask sum) are global sums, taken with no gradient, so each rank's
-loss is its share of the loss of the global batch.
+count, the reg loss's mask sum) are global sums over the data axis, taken with no
+gradient, so each rank's loss is its share of the loss of the global batch (the ranks
+of a spatial group hold the same gathered maps, so their counts are not summed again).
+
+BEV spatial partitioning: ``CenterHead.forward(x, slab)`` runs the shared conv and
+every branch conv on the slab's rows with one-row halos (``FusedConvBN``'s kernel halo
+form, ``rows_conv`` for the cuDNN convs at every depth) and returns each map gathered
+to the whole height (``RowSlab.gather``), so the losses, decode and NMS see the whole
+map.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tdal_torch.core.nms import circle_nms, rotated_nms
-from tdal_torch.models.layers import BatchNorm, FusedConvBN, conv_nhwc
+from tdal_torch.models.layers import BatchNorm, FusedConvBN, conv_nhwc, rows_conv
 from tdal_torch.parallel.mesh import all_reduce_sum
 
 _HEAD_BN = dict(momentum=0.1, eps=1e-5)
@@ -108,18 +115,19 @@ class SepHead(nn.Module):
         return [f"branch_conv{d}" for d in range(1, self.depth - 1)] + (
             ["final_conv"] if self.depth > 1 else [])
 
-    def _conv(self, h, weight, bias):
-        return conv_nhwc(h, weight, padding=1, dtype=self.dtype) + bias.to(self.dtype)
+    def _conv(self, h, weight, bias, slab=None):
+        return rows_conv(h, weight, slab=slab, dtype=self.dtype) + bias.to(self.dtype)
 
-    def _apply_masked(self, h, name):
+    def _apply_masked(self, h, name, slab=None):
         w = getattr(self, f"{name}_weight") * getattr(self, f"{name}_mask")
-        return self._conv(h, w, getattr(self, f"{name}_bias"))
+        return self._conv(h, w, getattr(self, f"{name}_bias"), slab)
 
     def _materialise(self, x, pre):
         dt = self.dtype
         return torch.relu(x.to(dt) * pre[0].to(dt) + pre[1].to(dt))
 
-    def forward(self, x, pre=None):
+    def forward(self, x, pre=None, slab=None):
+        """``slab``: x is its rows of the map (so are the outputs)."""
         if not self.fused:
             if pre is not None:
                 x = self._materialise(x, pre)
@@ -127,18 +135,19 @@ class SepHead(nn.Module):
             for name, branch in zip(self.names, self.branches):
                 h = x
                 for conv, bn in zip(branch.convs, branch.bns):
-                    h = torch.relu(bn(self._conv(h, conv.weight, conv.bias)))
-                out[name] = self._conv(h, branch.convs[-1].weight, branch.convs[-1].bias)
+                    h = torch.relu(bn(self._conv(h, conv.weight, conv.bias, slab)))
+                out[name] = self._conv(h, branch.convs[-1].weight, branch.convs[-1].bias,
+                                       slab)
             return out
         if self.depth == 1:
             h = x if pre is None else self._materialise(x, pre)
-            y = self._conv(h, self.final_conv.weight, self.final_conv.bias)
+            y = self._conv(h, self.final_conv.weight, self.final_conv.bias, slab)
         else:
-            h = self.branch_convbn0(x, pre=pre)
+            h = self.branch_convbn0(x, pre=pre, slab=slab)
             for d in range(1, self.depth - 1):
                 h = torch.relu(getattr(self, f"branch_bn{d}")(
-                    self._apply_masked(h, f"branch_conv{d}")))
-            y = self._apply_masked(h, "final_conv")
+                    self._apply_masked(h, f"branch_conv{d}", slab)))
+            y = self._apply_masked(h, "final_conv", slab)
         out, co = {}, 0
         for name, c in zip(self.names, self.outs):
             out[name] = y[..., co : co + c]
@@ -184,12 +193,17 @@ class CenterHead(nn.Module):
             self.tasks.append(SepHead(share_conv_channel, heads, final_kernel=3,
                                       init_bias=init_bias, dtype=dtype))
 
-    def forward(self, x):
+    def forward(self, x, slab=None):
+        """x: the map, or ``slab``'s rows of it; the maps returned are whole."""
         if self.dcn_head:
-            x = self.shared(x)
-            return [task(x) for task in self.tasks]
-        x, pre = self.shared(x, emit_raw=True)
-        return [task(x, pre=pre) for task in self.tasks]
+            x = self.shared(x, slab=slab)
+            preds = [task(x, slab=slab) for task in self.tasks]
+        else:
+            x, pre = self.shared(x, emit_raw=True, slab=slab)
+            preds = [task(x, pre=pre, slab=slab) for task in self.tasks]
+        if slab is None:
+            return preds
+        return [{k: slab.gather(v) for k, v in p.items()} for p in preds]
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +224,7 @@ def fast_focal_loss(out, target, ind, mask, cat):
     neg_loss = (torch.log(1 - out) * torch.pow(out, 2) * gt).sum()
     pos_all = _gather_feat(out.reshape(b, -1, out.shape[-1]), ind)
     pos_pred = (pos_all * F.one_hot(cat, out.shape[-1]).to(pos_all.dtype)).sum(-1)
-    num_pos = all_reduce_sum(mask.sum().detach())
+    num_pos = all_reduce_sum(mask.sum().detach(), "data")
     pos_loss = (torch.log(pos_pred) * torch.pow(1 - pos_pred, 2) * mask).sum()
     return torch.where(num_pos == 0, -neg_loss,
                        -(pos_loss + neg_loss) / num_pos.clamp_min(1))
@@ -222,7 +236,8 @@ def reg_loss(output, mask, ind, target):
     b = output.shape[0]
     pred = _gather_feat(output.reshape(b, -1, output.shape[-1]), ind)
     m = mask.to(pred.dtype)[..., None]
-    loss = torch.abs(pred * m - target * m) / (all_reduce_sum(m.sum().detach()) + 1e-4)
+    loss = torch.abs(pred * m - target * m) / (all_reduce_sum(m.sum().detach(), "data")
+                                               + 1e-4)
     return loss.sum(dim=(0, 1))
 
 

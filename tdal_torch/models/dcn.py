@@ -14,6 +14,13 @@ a time, scatters the cotangent into ``x`` (``index_add_``, which takes PyTorch's
 deterministic path under ``torch.use_deterministic_algorithms``) and sums the offset
 cotangent, so no corner's tap tensor outlives its turn.
 
+BEV spatial partitioning (``DCNSepHead.forward(x, slab)``): the sampling reads the whole
+canvas, so the shared conv's output is gathered (``RowSlab.gather`` with ``same=False``:
+each rank samples for its own output rows, so the cotangent is summed over the ranks
+before each keeps its rows) and each rank computes its own rows, their taps at global
+row coordinates (``row0``); the offset convs are 1x1 on the rank's rows, the 3x3 convs
+run on the slab with one-row halos.
+
 Dtypes follow tdal's promotion: the sampling coordinates and the corner weights are
 f32, so the sampled taps (and the deformable conv's matmul) are f32 also where ``x``
 is bf16; the 1x1 offset conv and the hm branch run in the head's dtype.
@@ -24,7 +31,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from tdal_torch.models.layers import BatchNorm, conv_nhwc
+from tdal_torch.models.layers import BatchNorm, conv_nhwc, rows_conv
 
 _HEAD_BN = dict(momentum=0.1, eps=1e-5)
 # (row step, column step) of the four corners, in tdal's order a, b, c, d
@@ -36,16 +43,17 @@ def _cell(v):
     return torch.floor(v)
 
 
-def sampling_coordinates(offsets, kernel_size: int = 3):
+def sampling_coordinates(offsets, kernel_size: int = 3, row0: int = 0):
     """(ys, xs), each (B, H, W, K*K) f32: every output position's taps, ordered (ky, kx)
     row-major over the kernel (``meshgrid(..., indexing="ij")``), moved by ``offsets``
-    (B, H, W, 2*K*K), a (dy, dx) pair per tap."""
+    (B, H, W, 2*K*K), a (dy, dx) pair per tap. The output rows are the map's rows
+    row0 .. row0 + H - 1."""
     b, h, w, _ = offsets.shape
     k = kernel_size
     half = (k - 1) // 2
     r = torch.arange(-half, half + 1, device=offsets.device)
     ky, kx = torch.meshgrid(r, r, indexing="ij")
-    base_y = (torch.arange(h, device=offsets.device)[:, None, None]
+    base_y = (torch.arange(row0, row0 + h, device=offsets.device)[:, None, None]
               + ky.reshape(1, 1, k * k)).float()  # (H, 1, K2)
     base_x = (torch.arange(w, device=offsets.device)[None, :, None]
               + kx.reshape(1, 1, k * k)).float()  # (1, W, K2)
@@ -71,9 +79,9 @@ def _corners(ys, xs, h: int, w: int):
 
 class _DeformSample(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, offsets, kernel_size):
+    def forward(ctx, x, offsets, kernel_size, row0):
         b, h, w, c = x.shape
-        ys, xs = sampling_coordinates(offsets, kernel_size)
+        ys, xs = sampling_coordinates(offsets, kernel_size, row0)
         corners, wy, wx = _corners(ys, xs, h, w)
         flat = x.reshape(b * h * w, c)
         out = None
@@ -82,14 +90,14 @@ class _DeformSample(torch.autograd.Function):
             term = flat.index_select(0, lin).view(*ys.shape, c) * weight[..., None]
             out = term if out is None else out.add_(term)
         ctx.save_for_backward(x, offsets)
-        ctx.kernel_size = kernel_size
+        ctx.kernel_size, ctx.row0 = kernel_size, row0
         return out
 
     @staticmethod
     def backward(ctx, grad):
         x, offsets = ctx.saved_tensors
         b, h, w, c = x.shape
-        ys, xs = sampling_coordinates(offsets, ctx.kernel_size)
+        ys, xs = sampling_coordinates(offsets, ctx.kernel_size, ctx.row0)
         corners, wy, wx = _corners(ys, xs, h, w)
         flat = x.reshape(b * h * w, c)
         g = grad.float()
@@ -103,13 +111,14 @@ class _DeformSample(torch.autograd.Function):
             gwx.add_(s * ay, alpha=1 if dx else -1)
             gx.index_add_(0, lin, (g * (ay * ax * inb)[..., None]).reshape(-1, c))
         goff = torch.stack([gwy, gwx], dim=-1).reshape(offsets.shape)
-        return gx.view(x.shape).to(x.dtype), goff.to(offsets.dtype), None
+        return gx.view(x.shape).to(x.dtype), goff.to(offsets.dtype), None, None
 
 
-def deform_sample(x, offsets, kernel_size: int = 3):
+def deform_sample(x, offsets, kernel_size: int = 3, row0: int = 0):
     """Bilinear samples of ``x`` (B, H, W, C) at the deformed taps of every output
-    position: (B, H, W, K*K, C), f32 (or wider where ``x`` is)."""
-    return _DeformSample.apply(x, offsets, kernel_size)
+    position: (B, Ho, W, K*K, C), f32 (or wider where ``x`` is), for the Ho output rows
+    row0 .. of ``offsets`` (B, Ho, W, 2*K*K): all of x's rows by default."""
+    return _DeformSample.apply(x, offsets, kernel_size, row0)
 
 
 class DeformConv(nn.Module):
@@ -122,8 +131,8 @@ class DeformConv(nn.Module):
         self.kernel_size, self.dtype = kernel_size, dtype
         self.kernel = nn.Parameter(torch.empty(kernel_size**2 * in_channels, features))
 
-    def forward(self, x, offsets):
-        taps = deform_sample(x, offsets, self.kernel_size)
+    def forward(self, x, offsets, row0: int = 0):
+        taps = deform_sample(x, offsets, self.kernel_size, row0)
         b, h, w, k2, c = taps.shape
         kernel = self.kernel.to(self.dtype)
         return taps.reshape(b, h, w, k2 * c) @ kernel.to(torch.promote_types(taps.dtype,
@@ -146,8 +155,10 @@ class FeatureAdaption(nn.Module):
     def offsets(self, x):
         return conv_nhwc(x, self.offset.weight, self.offset.bias, dtype=self.dtype)
 
-    def forward(self, x):
-        return torch.relu(self.deform(x, self.offsets(x)))
+    def forward(self, x, whole=None, row0: int = 0):
+        """x: the map, or this rank's rows of it from row ``row0`` with the whole map
+        ``whole`` to sample."""
+        return torch.relu(self.deform(x if whole is None else whole, self.offsets(x), row0))
 
 
 class DCNSepHead(nn.Module):
@@ -172,12 +183,14 @@ class DCNSepHead(nn.Module):
             self.hm_conv.bias.fill_(init_bias)
         self.reg = SepHead(in_channels, heads, head_conv, dtype=dtype)
 
-    def forward(self, x):
-        center, reg = self.center_adapt(x), self.reg_adapt(x)
-        h = conv_nhwc(center, self.cls_conv.weight, self.cls_conv.bias, padding=1,
+    def forward(self, x, slab=None):
+        """x: the map, or ``slab``'s rows of it (then the outputs are its rows too)."""
+        whole, row0 = (None, 0) if slab is None else (slab.gather(x, same=False), slab.start)
+        center, reg = self.center_adapt(x, whole, row0), self.reg_adapt(x, whole, row0)
+        h = rows_conv(center, self.cls_conv.weight, self.cls_conv.bias, slab,
                       dtype=self.dtype)
         h = torch.relu(self.cls_bn(h))
-        ret = self.reg(reg)
-        ret["hm"] = conv_nhwc(h, self.hm_conv.weight, self.hm_conv.bias, padding=1,
+        ret = self.reg(reg, slab=slab)
+        ret["hm"] = rows_conv(h, self.hm_conv.weight, self.hm_conv.bias, slab,
                               dtype=self.dtype)
         return ret

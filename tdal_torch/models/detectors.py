@@ -10,8 +10,17 @@ voxelize on the device.
 
 Train or eval follows ``module.training``; ``return_feature=True`` also returns the
 RPN's BEV feature map, which the two-stage detector samples. ``dcn_head`` swaps each
-task's SepHead for a ``DCNSepHead`` (``tdal_torch.models.dcn``). BEV spatial sharding
-(``bev_sharding``) is not ported yet.
+task's SepHead for a ``DCNSepHead`` (``tdal_torch.models.dcn``).
+
+``bev_sharding`` (tdal's field of the same name): a ``SpatialSharding`` of a mesh with a
+spatial axis (``tdal_torch.parallel.mesh.spatial_sharding``), or None. Set, the dense
+BEV stack is spatially partitioned over the mesh's spatial group: every rank builds the
+whole canvas (PointPillars, after ``scatter_to_bev``) or the middle backbone's BEV output
+(VoxelNet) from its frames and keeps its rows (``RowSlab.take``: the other rows get a
+zero cotangent, so the reader's and backbone's gradient is summed once over the ranks),
+the RPN and head run on the rows (hand halo exchanges, the conv kernels in their halo
+form), and the head's maps (and the returned feature map) come back whole on every
+rank. The row partition is that of the RPN's coarsest level (``spatial_slab``).
 """
 
 from __future__ import annotations
@@ -28,6 +37,20 @@ from tdal_torch.models.readers import PillarFeatureNet, VoxelMeanEncoder, scatte
 from tdal_torch.models.rpn import RPN
 from tdal_torch.models.scn import MiddleBackbone
 from tdal_torch.models.scn_sparse import SparseMiddleBackbone
+from tdal_torch.parallel.mesh import spatial_slab
+
+
+def _dense_stack(rpn, head, bev, bev_sharding, return_feature: bool):
+    """RPN + CenterHead on the BEV map, spatially partitioned under ``bev_sharding``."""
+    if bev_sharding is None:
+        x = rpn(bev)
+        preds = head(x)
+        return (preds, x) if return_feature else preds
+    slab = spatial_slab(bev_sharding.mesh, bev.shape[1], int(np.prod(rpn.ds_layer_strides)))
+    x = rpn(slab.take(bev), slab)
+    out = rpn.out_slab(slab)
+    preds = head(x, slab=out)
+    return (preds, out.gather(x)) if return_feature else preds
 
 
 class PointPillars(nn.Module):
@@ -39,9 +62,9 @@ class PointPillars(nn.Module):
                  rpn_us_strides: Sequence[int] = (1, 2, 4),
                  rpn_us_filters: Sequence[int] = (128, 128, 128),
                  with_velocity: bool = False, dcn_head: bool = False,
-                 dtype=torch.float32):
+                 bev_sharding=None, dtype=torch.float32):
         super().__init__()
-        self.voxel_cfg = voxel_cfg
+        self.voxel_cfg, self.bev_sharding = voxel_cfg, bev_sharding
         self.tasks = [dict(t) for t in tasks]
         self.with_velocity = with_velocity
         self.rpn_ds_strides, self.rpn_us_strides = tuple(rpn_ds_strides), tuple(rpn_us_strides)
@@ -71,9 +94,7 @@ class PointPillars(nn.Module):
         valid = torch.arange(feats.shape[1], device=feats.device)[None, :] < n_vox[:, None]
         nx, ny, _ = (int(g) for g in self.voxel_cfg.grid_size)
         canvas = scatter_to_bev(feats * valid[..., None], coords, valid, ny, nx)
-        x = self.rpn(canvas)
-        preds = self.head(x)
-        return (preds, x) if return_feature else preds
+        return _dense_stack(self.rpn, self.head, canvas, self.bev_sharding, return_feature)
 
 
 class VoxelNet(nn.Module):
@@ -84,9 +105,9 @@ class VoxelNet(nn.Module):
                  rpn_us_strides: Sequence[int] = (1, 2),
                  rpn_us_filters: Sequence[int] = (256, 256),
                  with_velocity: bool = False, sparse_middle: bool = None,
-                 dcn_head: bool = False, dtype=torch.float32):
+                 dcn_head: bool = False, bev_sharding=None, dtype=torch.float32):
         super().__init__()
-        self.voxel_cfg = voxel_cfg
+        self.voxel_cfg, self.bev_sharding = voxel_cfg, bev_sharding
         self.tasks = [dict(t) for t in tasks]
         self.with_velocity = with_velocity
         self.rpn_ds_strides, self.rpn_us_strides = tuple(rpn_ds_strides), tuple(rpn_us_strides)
@@ -119,6 +140,4 @@ class VoxelNet(nn.Module):
         feats = self.reader(voxels, num_points)
         valid = torch.arange(feats.shape[1], device=feats.device)[None, :] < n_vox[:, None]
         bev = self.backbone(feats * valid[..., None], coords, valid)
-        x = self.rpn(bev)
-        preds = self.head(x)
-        return (preds, x) if return_feature else preds
+        return _dense_stack(self.rpn, self.head, bev, self.bev_sharding, return_feature)

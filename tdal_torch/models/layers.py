@@ -9,10 +9,19 @@ taken in f32 over every axis but the last, the *biased* variance feeds the runni
 average, and ``momentum`` is the weight of the batch statistic (flax 0.99 -> 0.01,
 flax 0.9 -> 0.1). ``BatchNorm`` uses E[x^2] - E[x]^2 clipped at 0 (flax's fast
 variance); ``MaskedBatchNorm`` keeps padded rows out of its two-pass statistics.
-Under an active data-parallel mesh (``tdal_torch.parallel.mesh``) every statistic is
-over the global batch, as in tdal's sharded step: the sums are all-reduced (their
-cotangents too, in the backward) before the mean and variance are formed, and the
-counts are global.
+Under an active mesh (``tdal_torch.parallel.mesh``) every statistic is over the global
+batch, as in tdal's sharded step: the sums and the counts are all-reduced (the sums'
+cotangents too, in the backward) before the mean and variance are formed, over the
+whole world, so a map split by rows over a spatial axis (unevenly too) and a batch
+split over a data axis both give the statistics of the whole.
+
+BEV spatial partitioning: the 3x3 convs take ``slab`` (a ``RowSlab`` of the map they
+run on) and then run on this rank's rows with its neighbours' edge rows as the halo:
+``FusedConvBN`` in training through ``conv3x3_act_stats``' halo form (in a chain the
+neighbours' raw rows travel and the global scale/shift is applied to them in the
+kernel), in eval and in ``rows_conv`` (cuDNN) through ``RowSlab.exchange`` and a conv
+valid in H, zero-padded only at the map's own edges; the strided entry conv of
+``ConvBNReLU`` takes one row above. The deblocks need no halo.
 
 ``FusedConvBN`` in train mode runs ``tdal_torch.ops.conv3x3.conv3x3_act_stats``: on a
 CUDA tensor the conv, its output moments and the producer's normalise + ReLU
@@ -29,7 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tdal_torch.ops.conv3x3 import conv3x3_act_stats, conv3x3_bias
-from tdal_torch.parallel.mesh import all_reduce_sum, world_size
+from tdal_torch.parallel.mesh import all_reduce_sum
 
 
 def conv_nhwc(x, weight, bias=None, stride: int = 1, padding: int = 0, dtype=None):
@@ -38,6 +47,36 @@ def conv_nhwc(x, weight, bias=None, stride: int = 1, padding: int = 0, dtype=Non
     b = None if bias is None else bias.to(dtype)
     y = F.conv2d(x.to(dtype).permute(0, 3, 1, 2), weight.to(dtype), b, stride, padding)
     return y.permute(0, 2, 3, 1)
+
+
+def rows_conv(x, weight, bias=None, slab=None, stride: int = 1, act=None, dtype=None):
+    """A k x k conv with k // 2 zero padding (cuDNN), NHWC, on the whole map or on
+    ``slab``'s rows of it: the neighbours' edge rows joined (``RowSlab.exchange``: one
+    above, and one below at stride 1), ``act`` (an elementwise function) applied to
+    every real row, then zero padding only where the map ends and a conv valid in H."""
+    pad = weight.shape[-1] // 2
+    if slab is None or pad == 0:
+        if act is not None:
+            x = act(x)
+        return conv_nhwc(x, weight, bias, stride, pad, dtype)
+    if pad > 1:
+        raise ValueError("a row slab's halo is one row: kernels of 3 or less")
+    x = slab.exchange(x, True, stride == 1)
+    if act is not None:
+        x = act(x)
+    first, last = slab.index == 0, slab.index == len(slab.ranges) - 1
+    x = F.pad(x, (0, 0, 0, 0, pad * first, pad * last))
+    return conv_nhwc(x, weight, bias, stride, (0, pad), dtype)
+
+
+def moments(sums, count: int):
+    """(mean, var) from per-channel [sum, sum of squares] (2, C) and the element count,
+    both summed over the active mesh's whole world in one all-reduce (the count rides
+    along as a third row); var = max(E[x^2] - mean^2, 0)."""
+    total = all_reduce_sum(torch.cat([sums, sums.new_full((1, sums.shape[1]), float(count))]))
+    n = total[2]
+    mean = total[0] / n
+    return mean, (total[1] / n - mean * mean).clamp_min(0.0)
 
 
 def update_running(module, mean, var):
@@ -70,10 +109,8 @@ class BatchNorm(nn.Module):
         if self.training:
             xf = x.float()
             axes = tuple(range(x.dim() - 1))
-            n = xf[..., 0].numel() * world_size()
-            sums = all_reduce_sum(torch.stack([xf.sum(dim=axes), (xf * xf).sum(dim=axes)]))
-            mean = sums[0] / n
-            var = (sums[1] / n - mean * mean).clamp_min(0.0)
+            mean, var = moments(torch.stack([xf.sum(dim=axes), (xf * xf).sum(dim=axes)]),
+                                xf[..., 0].numel())
             update_running(self, mean, var)
         else:
             mean, var = self.running_mean, self.running_var
@@ -150,17 +187,18 @@ class FusedConvBN(nn.Module):
             return self.conv_bias
         return torch.zeros(self.weight.shape[0], device=device)
 
-    def forward(self, x, pre=None, emit_raw: bool = False):
+    def forward(self, x, pre=None, emit_raw: bool = False, slab=None):
         dt = self.dtype
         f = self.weight.shape[0]
         cbias = self._cbias(x.device)
         if not self.training:
             inv = torch.rsqrt(self.running_var + self.eps) * self.scale
             shift = self.bias + (cbias - self.running_mean) * inv
-            xin = x.to(dt)
+            act = None
             if pre is not None:  # chained eval: the predecessor's BN applied here
-                xin = torch.relu(xin * pre[0].to(dt) + pre[1].to(dt))
-            y = conv_nhwc(xin, self.weight, padding=1, dtype=dt) * inv.to(dt) + shift.to(dt)
+                act = lambda v: torch.relu(v.to(dt) * pre[0].to(dt) + pre[1].to(dt))  # noqa: E731
+            y = rows_conv(x.to(dt), self.weight, slab=slab, act=act, dtype=dt)
+            y = y * inv.to(dt) + shift.to(dt)
             if emit_raw:
                 ones = torch.ones(f, device=x.device)
                 return y, (ones, torch.zeros_like(ones))
@@ -174,13 +212,10 @@ class FusedConvBN(nn.Module):
         else:
             in_scale, in_shift = pre
         y, stats = conv3x3_act_stats(x.to(dt).contiguous(), hwio(self.weight).to(dt), cbias,
-                                     in_scale, in_shift, pre is not None)
+                                     in_scale, in_shift, pre is not None, slab=slab)
         # the moments over the global batch: their cotangents, summed over the mesh in
         # the backward, are what K5/K7 take through _ConvActStats' backward
-        stats = all_reduce_sum(stats)
-        n = float(y.numel() // f * world_size())
-        mean = stats[0] / n
-        var = (stats[1] / n - mean * mean).clamp_min(0.0)
+        mean, var = moments(stats, y.numel() // f)
         update_running(self, mean, var)
         inv = torch.rsqrt(var + self.eps) * self.scale
         shift = self.bias - mean * inv
@@ -209,13 +244,17 @@ class ConvBNReLU(nn.Module):
                                   bias=use_bias)
             self.bn = BatchNorm(features, momentum, eps, dtype)
 
-    def forward(self, x, pre=None, emit_raw: bool = False):
+    def forward(self, x, pre=None, emit_raw: bool = False, slab=None):
+        """``slab``: the input's rows (BEV spatial partitioning)."""
         if self.fused is not None:
-            return self.fused(x, pre=pre, emit_raw=emit_raw)
+            return self.fused(x, pre=pre, emit_raw=emit_raw, slab=slab)
         if pre is not None or emit_raw:
             raise ValueError("chaining needs the 3x3 stride-1 fused path")
         c = self.conv
-        x = conv_nhwc(x, c.weight, c.bias, c.stride, c.padding, self.dtype)
+        if slab is None:
+            x = conv_nhwc(x, c.weight, c.bias, c.stride, c.padding, self.dtype)
+        else:
+            x = rows_conv(x, c.weight, c.bias, slab, c.stride[0], dtype=self.dtype)
         return torch.relu(self.bn(x))
 
 

@@ -35,7 +35,7 @@ from tdal_torch.ops.fused_pointnet import (
     pointnet_seg_logits,
     seg_weight_streams,
 )
-from tdal_torch.parallel.mesh import rank_rows, world_size
+from tdal_torch.parallel.mesh import data_size, rank_rows
 
 BOX_PRED_DIM = 3 + NUM_HEADING_BIN * 2 + NUM_SIZE_CLUSTER * 4  # 59
 
@@ -164,7 +164,7 @@ def train_draws(pts, generator: torch.Generator) -> dict:
     data-parallel mesh both are drawn over the global batch (B times the world size
     rows, from the same generator on every rank) and this rank's rows are kept, so
     each row gets the draws of a single-process step."""
-    b, n = pts.shape[0] * world_size(), pts.shape[1]
+    b, n = pts.shape[0] * data_size(), pts.shape[1]
     noise = torch.rand((b, n), generator=generator, device=pts.device)
     keep = torch.rand((b, n, 128), generator=generator, device=pts.device) >= DROPOUT_RATE
     return {"noise": rank_rows(noise), "keep": rank_rows(keep)}

@@ -8,6 +8,12 @@ concatenated on the channel axis.
 
 Children: ``blocks[i]`` is a ``ModuleList`` [entry, layer_1, ..., layer_n] of
 ``ConvBNReLU``s; ``deblocks[j]`` a ``DeconvBNReLU``.
+
+BEV spatial partitioning: given the input's ``RowSlab`` (``forward(x, slab)``), each
+stage runs on its level's rows of the partition (the input's ranges over the stage's
+total stride: ``tdal_torch.parallel.mesh.spatial_slab`` makes them nest), its convs
+exchanging one-row halos with the neighbours, and the deblocks' outputs concatenate
+row for row.
 """
 
 from __future__ import annotations
@@ -61,17 +67,28 @@ class RPN(nn.Module):
             factor //= int(self.us_layer_strides[-1])
         return max(factor, 1)
 
-    def forward(self, x):
+    def out_slab(self, slab):
+        """The output's ``RowSlab`` given the input's (None: None)."""
+        if slab is None:
+            return None
+        stride = int(np.prod(self.ds_layer_strides))
+        us = self.us_layer_strides[-1] if len(self.us_layer_strides) else 1
+        return slab.scaled(*((int(us), stride) if us >= 1 else (1, stride * int(round(1 / us)))))
+
+    def forward(self, x, slab=None):
+        """x: the map, or ``slab``'s rows of it (then the output is its rows too)."""
         ups = []
         dt = self.dtype
         for i, block in enumerate(self.blocks):
             entry, layers = block[0], block[1:]
-            if self.ds_layer_strides[i] == 1:
-                x, pre = entry(x, emit_raw=True)
+            stride = self.ds_layer_strides[i]
+            if stride == 1:
+                x, pre = entry(x, emit_raw=True, slab=slab)
             else:
-                x, pre = entry(x), None
+                x, pre = entry(x, slab=slab), None
+                slab = None if slab is None else slab.scaled(1, stride)
             for layer in layers:
-                x, pre = layer(x, pre=pre, emit_raw=True)
+                x, pre = layer(x, pre=pre, emit_raw=True, slab=slab)
             if pre is not None:
                 x = torch.relu(x.to(dt) * pre[0].to(dt) + pre[1].to(dt))
             j = i - self.up_start

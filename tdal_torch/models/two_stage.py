@@ -314,13 +314,13 @@ def roi_losses(rcnn_cls, rcnn_reg, targets, code_weights, cls_weight=1.0, reg_we
     p = torch.sigmoid(rcnn_cls.reshape(-1)).clamp(1e-7, 1 - 1e-7)
     bce = -(labels * torch.log(p) + (1 - labels) * torch.log(1 - p))
     valid = (labels >= 0).float()
-    loss_cls = (bce * valid).sum() / all_reduce_sum(valid.sum()).clamp_min(1.0) * cls_weight
+    loss_cls = (bce * valid).sum() / all_reduce_sum(valid.sum(), "data").clamp_min(1.0) * cls_weight
     code_size = rcnn_reg.shape[-1]
     reg_targets = targets["gt_of_rois"][..., :code_size].reshape(-1, code_size)
     fg = (targets["reg_valid_mask"].reshape(-1) > 0).float()
     l1 = (rcnn_reg.reshape(-1, code_size) - reg_targets).abs()
     l1 = l1 * torch.as_tensor(code_weights, dtype=l1.dtype, device=l1.device)
-    loss_reg = (l1 * fg[:, None]).sum() / all_reduce_sum(fg.sum()).clamp_min(1.0) * reg_weight
+    loss_reg = (l1 * fg[:, None]).sum() / all_reduce_sum(fg.sum(), "data").clamp_min(1.0) * reg_weight
     return loss_cls, loss_reg
 
 

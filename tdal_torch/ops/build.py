@@ -2,12 +2,16 @@
 
 ``kernels()`` compiles every ``csrc/*.cu`` for ``sm_90a``, one ``nvcc`` process per
 source, all started together, and links the objects into a shared library with a
-plain C interface, ``build/tdal_torch_kernels/libtdal_torch_kernels.so`` (listed in
-``.gitignore``), the first time a process launches a kernel; it loads it with
-``ctypes``. The sources include no PyTorch header, so the build takes seconds. The
+plain C interface, ``build/tdal_torch_kernels/libtdal_torch_kernels-<digest>.so``
+(listed in ``.gitignore``; the digest is that of the sources and the flags), the first
+time a process launches a kernel; it loads it with ``ctypes``. A process that finds the
+library of its digest already built (a rank spawned after its parent built it) loads
+it with the build's log, which is kept beside it. The sources include no PyTorch
+header, so the build takes seconds. The
 returned object has one launcher per kernel taking tensors (``seg_encoder``,
 ``seg_decoder_gproj``, ``seg_decoder``, ``conv3x3_fwd_stats``, ``conv3x3_fwd``,
-``conv3x3_wgrad``, ``conv3x3_dgrad_act``) and a few geometry queries (tiles,
+``conv3x3_wgrad``, ``conv3x3_dgrad_act``, each of the last four also in the row halo
+form with ``halo=(top, bottom)``) and a few geometry queries (tiles,
 weight-stream bytes, wgrad chunks, shared memory); each launcher runs on PyTorch's
 current stream and checks the launch with ``tdal_last_error()`` right after it.
 ``build_log`` keeps ``nvcc``'s ``-Xptxas -v`` report (registers, static shared memory,
@@ -18,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import hashlib
 import os
 import shutil
 import subprocess
@@ -27,6 +32,15 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tdal_torch_kernels"
 GENCODE = "-gencode=arch=compute_90a,code=sm_90a"
+FLAGS = [GENCODE, "-std=c++17", "-O3", "-Xptxas=-v", "-Xcompiler", "-fPIC"]
+
+
+def _digest() -> str:
+    """Of the sources (``*.cu`` and the headers they include) and the flags."""
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for src in sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")]):
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return h.hexdigest()[:16]
 
 
 @functools.cache
@@ -37,7 +51,11 @@ def kernels():
     if CUDA_HOME is None:
         raise RuntimeError("tdal_torch: no CUDA toolkit found to build the kernels")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / "libtdal_torch_kernels.so"
+    digest = _digest()
+    out = BUILD_DIR / f"libtdal_torch_kernels-{digest}.so"
+    log = out.with_suffix(".log")
+    if out.exists() and log.exists():
+        return _Kernels(out, log.read_text())
     nvcc = str(Path(CUDA_HOME) / "bin" / "nvcc")
     # build under temporary names, then rename: concurrent processes never load a
     # half-written library
@@ -46,8 +64,7 @@ def kernels():
         sources = sorted(CSRC.glob("*.cu"))
         procs = [
             subprocess.Popen(
-                [nvcc, GENCODE, "-std=c++17", "-O3", "-Xptxas=-v", "-Xcompiler", "-fPIC",
-                 "-c", str(src), "-o", str(work / f"{src.stem}.o")],
+                [nvcc, *FLAGS, "-c", str(src), "-o", str(work / f"{src.stem}.o")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
             for src in sources
@@ -59,7 +76,9 @@ def kernels():
         lib = work / "lib.so"
         subprocess.run([nvcc, GENCODE, "-shared", "-o", str(lib),
                         *(str(work / f"{s.stem}.o") for s in sources)], check=True)
+        (work / "log").write_text("".join(logs))
         os.replace(lib, out)
+        os.replace(work / "log", log)  # last: a library with its log is complete
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return _Kernels(out, "".join(logs))
@@ -92,10 +111,17 @@ class _Kernels:
             ("tdal_conv3x3_wgrad", [P, P, I, I, I, I, I, P, P, I, I, P, P, I, P], None),
             ("tdal_conv3x3_dgrad_act", [P, P, P, I, I, I, I, I, P, P, P, P, P, I, P],
              None),
+            ("tdal_conv3x3_fwd_stats_halo",
+             [P, P, I, I, I, I, I, P, P, I, P, P, P, P, I, I, I, P], None),
+            ("tdal_conv3x3_fwd_halo", [P, P, I, I, I, I, I, P, P, I, P, I, I, I, P], None),
+            ("tdal_conv3x3_wgrad_halo",
+             [P, P, I, I, I, I, I, P, P, I, I, P, P, I, I, I, P], None),
+            ("tdal_conv3x3_dgrad_act_halo",
+             [P, P, P, I, I, I, I, I, P, P, P, P, P, I, I, I, P], None),
         ):
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = args, res
-        self._lib = lib
+        self._lib, self.path = lib, path
         self.build_log = build_log
 
     def _check(self, what: str):
@@ -169,40 +195,53 @@ class _Kernels:
         """Dynamic shared memory of one block of the conv or the wgrad kernel, bytes."""
         return self._lib.tdal_conv3x3_smem(int(wgrad), int(bf16))
 
+    # The conv launchers: ``halo=(top, bottom)`` other than (0, 0) calls the row halo
+    # form (``csrc/conv3x3_halo.cu``) on a conv input of top + H + bottom rows, H the
+    # output's; (0, 0) the whole-image entry point.
+
     def conv3x3_fwd_stats(self, x, w, in_scale, in_shift, in_act: bool, bias, y, partial,
-                          stats):
-        B, H, W, C = x.shape
-        self._lib.tdal_conv3x3_fwd_stats(
-            x.data_ptr(), w.data_ptr(), B, H, W, C, w.shape[-1], in_scale.data_ptr(),
-            in_shift.data_ptr(), int(in_act), bias.data_ptr(), y.data_ptr(),
-            partial.data_ptr(), stats.data_ptr(), self._bf16(x), self._stream(x),
-        )
+                          stats, halo=(0, 0)):
+        B, H, W, C = y.shape[0], y.shape[1], y.shape[2], x.shape[-1]
+        args = (x.data_ptr(), w.data_ptr(), B, H, W, C, w.shape[-1], in_scale.data_ptr(),
+                in_shift.data_ptr(), int(in_act), bias.data_ptr(), y.data_ptr(),
+                partial.data_ptr(), stats.data_ptr())
+        if tuple(halo) == (0, 0):
+            self._lib.tdal_conv3x3_fwd_stats(*args, self._bf16(x), self._stream(x))
+        else:
+            self._lib.tdal_conv3x3_fwd_stats_halo(*args, *halo, self._bf16(x),
+                                                  self._stream(x))
         self._check("conv3x3_fwd_stats")
 
-    def conv3x3_fwd(self, x, w, scale, shift, relu: bool, y):
-        B, H, W, C = x.shape
-        self._lib.tdal_conv3x3_fwd(
-            x.data_ptr(), w.data_ptr(), B, H, W, C, w.shape[-1],
-            None if scale is None else scale.data_ptr(), shift.data_ptr(), int(relu),
-            y.data_ptr(), self._bf16(x), self._stream(x),
-        )
+    def conv3x3_fwd(self, x, w, scale, shift, relu: bool, y, halo=(0, 0)):
+        B, H, W, C = y.shape[0], y.shape[1], y.shape[2], x.shape[-1]
+        args = (x.data_ptr(), w.data_ptr(), B, H, W, C, w.shape[-1],
+                None if scale is None else scale.data_ptr(), shift.data_ptr(), int(relu),
+                y.data_ptr())
+        if tuple(halo) == (0, 0):
+            self._lib.tdal_conv3x3_fwd(*args, self._bf16(x), self._stream(x))
+        else:
+            self._lib.tdal_conv3x3_fwd_halo(*args, *halo, self._bf16(x), self._stream(x))
         self._check("conv3x3_fwd")
 
     def conv3x3_wgrad(self, x, gy, in_scale, in_shift, in_act: bool, splits: int, partial,
-                      dw):
-        B, H, W, C = x.shape
-        self._lib.tdal_conv3x3_wgrad(
-            x.data_ptr(), gy.data_ptr(), B, H, W, C, gy.shape[-1], in_scale.data_ptr(),
-            in_shift.data_ptr(), int(in_act), splits, partial.data_ptr(), dw.data_ptr(),
-            self._bf16(x), self._stream(x),
-        )
+                      dw, halo=(0, 0)):
+        B, H, W, C = gy.shape[0], gy.shape[1], gy.shape[2], x.shape[-1]
+        args = (x.data_ptr(), gy.data_ptr(), B, H, W, C, gy.shape[-1], in_scale.data_ptr(),
+                in_shift.data_ptr(), int(in_act), splits, partial.data_ptr(), dw.data_ptr())
+        if tuple(halo) == (0, 0):
+            self._lib.tdal_conv3x3_wgrad(*args, self._bf16(x), self._stream(x))
+        else:
+            self._lib.tdal_conv3x3_wgrad_halo(*args, *halo, self._bf16(x), self._stream(x))
         self._check("conv3x3_wgrad")
 
-    def conv3x3_dgrad_act(self, gy, wt, x, s, t, dx, partial, stats):
-        B, H, W, Co = gy.shape
-        self._lib.tdal_conv3x3_dgrad_act(
-            gy.data_ptr(), wt.data_ptr(), x.data_ptr(), B, H, W, Co, x.shape[-1],
-            s.data_ptr(), t.data_ptr(), dx.data_ptr(), partial.data_ptr(),
-            stats.data_ptr(), self._bf16(gy), self._stream(gy),
-        )
+    def conv3x3_dgrad_act(self, gy, wt, x, s, t, dx, partial, stats, halo=(0, 0)):
+        B, H, W, C = x.shape
+        args = (gy.data_ptr(), wt.data_ptr(), x.data_ptr(), B, H, W, gy.shape[-1], C,
+                s.data_ptr(), t.data_ptr(), dx.data_ptr(), partial.data_ptr(),
+                stats.data_ptr())
+        if tuple(halo) == (0, 0):
+            self._lib.tdal_conv3x3_dgrad_act(*args, self._bf16(gy), self._stream(gy))
+        else:
+            self._lib.tdal_conv3x3_dgrad_act_halo(*args, *halo, self._bf16(gy),
+                                                  self._stream(gy))
         self._check("conv3x3_dgrad_act")

@@ -22,14 +22,29 @@ are f32. In bf16 the activated input is rounded to bf16 before the taps, product
 accumulate in f32, the statistics come from the f32 accumulator and y is rounded to
 bf16, as the TPU kernels do.
 
+The row halo form (BEV spatial partitioning, ``tdal_torch.parallel.mesh``): every
+wrapper and twin takes ``halo=(top, bottom)``, each 0 or 1. The conv input (x of K3,
+K4 and K5/K6; gy of K7) then holds top + H + bottom rows, all real image rows: a
+rank's H rows of a map split by rows, with its neighbours' edge rows above and below.
+Zero padding stays only on a side with no halo row (the image's own edge); the input
+affine + ReLU applies to the halo rows as to any real row, never to padding. The
+output, the statistics, K7's x and the wgrad's gy cover the H own rows. ``halo=(0, 0)``
+is the whole-image kernel of before (``csrc/conv3x3.cu``); any other launches the halo
+instantiations (``csrc/conv3x3_halo.cu``).
+
 Differentiable ops, as in tdal: ``conv3x3_act_stats`` (forward K3; backward K5 wgrad
 and, with flipped, in/out-swapped weights, the dgrad: K7 with ``in_act``, else K4),
 ``conv3x3_bias`` (forward K4;
 backward K4 + K6), ``conv3x3`` and ``conv3x3_affine`` (inference only). tdal's TPU
 tiling, its Pallas/XLA gate and its tiny-output XLA backward are not semantics: on
-the card every call goes through the kernels.
+the card every call goes through the kernels. ``conv3x3_act_stats`` also runs on a row
+slab (``slab``, a ``tdal_torch.parallel.mesh.RowSlab``): its forward exchanges x's edge
+rows with the neighbours and launches K3 in the halo form, its backward exchanges the
+cotangent's edge rows and launches K7 (or the K4 dgrad) and K5/K6 in the halo form,
+so each rank's dx is whole for its own rows and no cotangent travels back.
 
-``launches`` counts wrapper calls that launched their kernel; twins do not count.
+``launches`` counts wrapper calls that launched their kernel, ``halo_launches`` those
+of them in the halo form; twins do not count.
 """
 
 from __future__ import annotations
@@ -39,6 +54,7 @@ import torch.nn.functional as F
 
 launches = {"conv3x3_fwd_stats": 0, "conv3x3_fwd": 0, "conv3x3_wgrad": 0,
             "conv3x3_dgrad_act": 0}
+halo_launches = dict.fromkeys(launches, 0)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _WGRAD_BLOCKS_PER_SM = 4  # wgrad blocks per SM over the grid: one resident, four waves
@@ -57,55 +73,60 @@ def _activate(x, in_scale, in_shift, in_act: bool):
     return xf
 
 
-def _taps(xf):
-    """The 9 shifted (B, H, W, C) views of xf zero-padded by one pixel, tap order."""
+def _taps(xf, halo=(0, 0)):
+    """The 9 shifted (B, H, W, C) views of xf, tap order: xf zero-padded by one pixel,
+    but for the rows of ``halo`` (top, bottom), which are xf's own (then H is xf's rows
+    less the halo's)."""
+    top, bottom = halo
     _, h, w, _ = xf.shape
-    xp = F.pad(xf, (0, 0, 1, 1, 1, 1))
+    h -= top + bottom
+    xp = F.pad(xf, (0, 0, 1, 1, 1 - top, 1 - bottom))
     return [xp[:, ky : ky + h, kx : kx + w] for ky in range(3) for kx in range(3)]
 
 
-def _conv_f32(xf, wf):
-    """SAME 3x3 conv as 9 shifted products, f32: (B, H, W, C) x (3, 3, C, Co)."""
+def _conv_f32(xf, wf, halo=(0, 0)):
+    """SAME 3x3 conv as 9 shifted products, f32: (B, H, W, C) x (3, 3, C, Co); with
+    ``halo`` valid in the halo's rows."""
     wt = wf.reshape(9, *wf.shape[2:])
     out = None
-    for k, tap in enumerate(_taps(xf)):
+    for k, tap in enumerate(_taps(xf, halo)):
         term = tap @ wt[k]
         out = term if out is None else out + term
     return out
 
 
-def conv3x3_fwd_stats_plain(x, w, bias, in_scale, in_shift, in_act: bool):
+def conv3x3_fwd_stats_plain(x, w, bias, in_scale, in_shift, in_act: bool, halo=(0, 0)):
     """Twin of K3: (y in x's type, stats (2, Co) f32)."""
-    acc = _conv_f32(_activate(x, in_scale, in_shift, in_act), w.float()) + bias.float()
+    acc = _conv_f32(_activate(x, in_scale, in_shift, in_act), w.float(), halo) + bias.float()
     stats = torch.stack([acc.sum(dim=(0, 1, 2)), (acc * acc).sum(dim=(0, 1, 2))])
     return acc.to(x.dtype), stats
 
 
-def conv3x3_fwd_plain(x, w, shift, scale=None, relu: bool = False):
+def conv3x3_fwd_plain(x, w, shift, scale=None, relu: bool = False, halo=(0, 0)):
     """Twin of K4: conv(x, w) * scale + shift, optional ReLU, in x's type."""
-    acc = _conv_f32(x.float(), w.float())
+    acc = _conv_f32(x.float(), w.float(), halo)
     if scale is not None:
         acc = acc * scale.float()
     acc = acc + shift.float()
     return (torch.relu(acc) if relu else acc).to(x.dtype)
 
 
-def conv3x3_wgrad_plain(x, gy, in_scale, in_shift, in_act: bool):
+def conv3x3_wgrad_plain(x, gy, in_scale, in_shift, in_act: bool, halo=(0, 0)):
     """Twin of K5/K6: dw[ky, kx] = sum over b, h, w of act(x) shifted by the tap times
     gy, f32 (3, 3, C, Co)."""
     g = gy.float().reshape(-1, gy.shape[-1])
-    taps = _taps(_activate(x, in_scale, in_shift, in_act))
+    taps = _taps(_activate(x, in_scale, in_shift, in_act), halo)
     dw = torch.stack([t.reshape(-1, t.shape[-1]).t() @ g for t in taps])
     return dw.reshape(3, 3, x.shape[-1], gy.shape[-1])
 
 
-def conv3x3_dgrad_act_plain(gy, wt, x, s, t):
+def conv3x3_dgrad_act_plain(gy, wt, x, s, t, halo=(0, 0)):
     """Twin of K7: (dx in x's type, stats (2, C) f32 = [sum dxh * x, sum dxh]).
 
     In bf16 this rounds once, at dx, as tdal's Pallas K7 does (tdal's XLA route rounds
     dxhat to bf16 before the mask as well)."""
     xf = x.float()
-    dxh = _conv_f32(gy.float(), wt.float()) * (xf * s.float() + t.float() > 0)
+    dxh = _conv_f32(gy.float(), wt.float(), halo) * (xf * s.float() + t.float() > 0)
     stats = torch.stack([(dxh * xf).sum(dim=(0, 1, 2)), dxh.sum(dim=(0, 1, 2))])
     return (dxh * s.float()).to(x.dtype), stats
 
@@ -126,24 +147,40 @@ def _require(name, t, shape, dtype, device):
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def _require_input(kind, x):
+def _halo(kind, halo):
+    top, bottom = (int(v) for v in halo)
+    if top not in (0, 1) or bottom not in (0, 1):
+        raise ValueError(f"{kind}: halo rows (top, bottom) must each be 0 or 1, got {halo}")
+    return top, bottom
+
+
+def _require_input(kind, x, halo=(0, 0)):
+    """(B, H, W, C) of a conv input with ``halo``'s rows around H own rows."""
+    top, bottom = _halo(kind, halo)
     if x.device.type != "cuda":
         raise ValueError(f"{kind}: expected a CUDA tensor, got device {x.device}")
-    if x.dim() != 4 or min(x.shape) < 1:
-        raise ValueError(f"{kind}: x must be (B, H, W, C) with every dim >= 1, got "
-                         f"{tuple(x.shape)}")
+    if x.dim() != 4 or min(x.shape) < 1 or x.shape[1] - top - bottom < 1:
+        raise ValueError(f"{kind}: x must be (B, top + H + bottom, W, C) with every dim "
+                         f">= 1, got {tuple(x.shape)} for halo {halo}")
     if x.dtype not in _DTYPES:
         raise TypeError(f"{kind}: x must be float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{kind}: expected a contiguous x")
-    return x.shape
+    b, h, w, c = x.shape
+    return b, h - top - bottom, w, c
 
 
-def conv3x3_fwd_stats(x, w, bias, in_scale, in_shift, in_act: bool):
+def _count(name, halo):
+    launches[name] += 1
+    if tuple(halo) != (0, 0):
+        halo_launches[name] += 1
+
+
+def conv3x3_fwd_stats(x, w, bias, in_scale, in_shift, in_act: bool, halo=(0, 0)):
     """K3: (y (B, H, W, Co) in x's type, stats (2, Co) f32)."""
     if x.device.type == "cpu":
-        return conv3x3_fwd_stats_plain(x, w, bias, in_scale, in_shift, in_act)
-    B, H, W, C = _require_input("conv3x3_fwd_stats", x)
+        return conv3x3_fwd_stats_plain(x, w, bias, in_scale, in_shift, in_act, halo)
+    B, H, W, C = _require_input("conv3x3_fwd_stats", x, halo)
     Co = w.shape[-1]
     dev = x.device
     _require("conv3x3_fwd_stats w", w, (3, 3, C, Co), x.dtype, dev)
@@ -160,16 +197,16 @@ def conv3x3_fwd_stats(x, w, bias, in_scale, in_shift, in_act: bool):
     stats = torch.empty(2, Co, device=dev, dtype=torch.float32)
     with torch.cuda.device(dev):
         lib.conv3x3_fwd_stats(x, w, in_scale, in_shift, bool(in_act), bias, y, partial,
-                              stats)
-    launches["conv3x3_fwd_stats"] += 1
+                              stats, halo)
+    _count("conv3x3_fwd_stats", halo)
     return y, stats
 
 
-def conv3x3_fwd(x, w, shift, scale=None, relu: bool = False):
+def conv3x3_fwd(x, w, shift, scale=None, relu: bool = False, halo=(0, 0)):
     """K4: conv(x, w) * scale + shift (scale None means 1), optional ReLU; x's type."""
     if x.device.type == "cpu":
-        return conv3x3_fwd_plain(x, w, shift, scale, relu)
-    B, H, W, C = _require_input("conv3x3_fwd", x)
+        return conv3x3_fwd_plain(x, w, shift, scale, relu, halo)
+    B, H, W, C = _require_input("conv3x3_fwd", x, halo)
     Co = w.shape[-1]
     dev = x.device
     _require("conv3x3_fwd w", w, (3, 3, C, Co), x.dtype, dev)
@@ -182,8 +219,8 @@ def conv3x3_fwd(x, w, shift, scale=None, relu: bool = False):
     lib = kernels()
     y = torch.empty(B, H, W, Co, device=dev, dtype=x.dtype)
     with torch.cuda.device(dev):
-        lib.conv3x3_fwd(x, w, scale, shift, bool(relu), y)
-    launches["conv3x3_fwd"] += 1
+        lib.conv3x3_fwd(x, w, scale, shift, bool(relu), y, halo)
+    _count("conv3x3_fwd", halo)
     return y
 
 
@@ -195,11 +232,12 @@ def _wgrad_splits(n_tiles: int, chunks: int, sms: int) -> int:
     return max(1, min(n_tiles, _WGRAD_BLOCKS_PER_SM * sms // chunks))
 
 
-def conv3x3_wgrad(x, gy, in_scale, in_shift, in_act: bool):
-    """K5 (``in_act``) / K6: dw (3, 3, C, Co) f32."""
+def conv3x3_wgrad(x, gy, in_scale, in_shift, in_act: bool, halo=(0, 0)):
+    """K5 (``in_act``) / K6: dw (3, 3, C, Co) f32. With ``halo`` x has its rows around
+    gy's H."""
     if x.device.type == "cpu":
-        return conv3x3_wgrad_plain(x, gy, in_scale, in_shift, in_act)
-    B, H, W, C = _require_input("conv3x3_wgrad", x)
+        return conv3x3_wgrad_plain(x, gy, in_scale, in_shift, in_act, halo)
+    B, H, W, C = _require_input("conv3x3_wgrad", x, halo)
     Co = gy.shape[-1]
     dev = x.device
     _require("conv3x3_wgrad gy", gy, (B, H, W, Co), x.dtype, dev)
@@ -214,18 +252,19 @@ def conv3x3_wgrad(x, gy, in_scale, in_shift, in_act: bool):
     partial = torch.empty(splits, 3, 3, C, Co, device=dev, dtype=torch.float32)
     dw = torch.empty(3, 3, C, Co, device=dev, dtype=torch.float32)
     with torch.cuda.device(dev):
-        lib.conv3x3_wgrad(x, gy, in_scale, in_shift, bool(in_act), splits, partial, dw)
-    launches["conv3x3_wgrad"] += 1
+        lib.conv3x3_wgrad(x, gy, in_scale, in_shift, bool(in_act), splits, partial, dw,
+                          halo)
+    _count("conv3x3_wgrad", halo)
     return dw
 
 
-def conv3x3_dgrad_act(gy, wt, x, s, t):
+def conv3x3_dgrad_act(gy, wt, x, s, t, halo=(0, 0)):
     """K7: gy (B, H, W, Co), wt (3, 3, Co, C) flipped and in/out-swapped, x (B, H, W, C)
     the forward's input, s and t (C,) f32 -> (dx (B, H, W, C) in x's type, stats
-    (2, C) f32)."""
+    (2, C) f32). With ``halo`` gy has its rows around x's H."""
     if gy.device.type == "cpu":
-        return conv3x3_dgrad_act_plain(gy, wt, x, s, t)
-    B, H, W, Co = _require_input("conv3x3_dgrad_act", gy)
+        return conv3x3_dgrad_act_plain(gy, wt, x, s, t, halo)
+    B, H, W, Co = _require_input("conv3x3_dgrad_act", gy, halo)
     C = wt.shape[-1]
     dev = gy.device
     _require("conv3x3_dgrad_act wt", wt, (3, 3, Co, C), gy.dtype, dev)
@@ -241,8 +280,8 @@ def conv3x3_dgrad_act(gy, wt, x, s, t):
                           dtype=torch.float32)
     stats = torch.empty(2, C, device=dev, dtype=torch.float32)
     with torch.cuda.device(dev):
-        lib.conv3x3_dgrad_act(gy, wt, x, s, t, dx, partial, stats)
-    launches["conv3x3_dgrad_act"] += 1
+        lib.conv3x3_dgrad_act(gy, wt, x, s, t, dx, partial, stats, halo)
+    _count("conv3x3_dgrad_act", halo)
     return dx, stats
 
 
@@ -260,19 +299,28 @@ def _vec(v):
     return v.float().contiguous()
 
 
+def _with_halo(t, slab):
+    """(t with its neighbours' edge rows, the halo (top, bottom)); (t, (0, 0)) without a
+    slab."""
+    if slab is None:
+        return t, (0, 0)
+    return slab.pad_rows(t).contiguous(), slab.halo()
+
+
 class _ConvActStats(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, bias, in_scale, in_shift, in_act):
+    def forward(ctx, x, w, bias, in_scale, in_shift, in_act, slab):
         s, t = _vec(in_scale), _vec(in_shift)
-        y, stats = conv3x3_fwd_stats(x, w, _vec(bias), s, t, in_act)
-        ctx.save_for_backward(x, w, s, t, y)
-        ctx.in_act = in_act
+        xh, halo = _with_halo(x, slab)
+        y, stats = conv3x3_fwd_stats(xh, w, _vec(bias), s, t, in_act, halo)
+        ctx.save_for_backward(x, xh, w, s, t, y)
+        ctx.in_act, ctx.slab = in_act, slab
         ctx.dtypes = (bias.dtype, in_scale.dtype, in_shift.dtype)
         return y, stats
 
     @staticmethod
     def backward(ctx, gy, gstats):
-        x, w, s, t, y = ctx.saved_tensors
+        x, xh, w, s, t, y = ctx.saved_tensors
         bdt, sdt, tdt = ctx.dtypes
         # cotangent into the raw conv output: direct + through the two moments
         gy_tot = (gy.float() + gstats[0] + 2.0 * y.float() * gstats[1]).to(y.dtype)
@@ -280,17 +328,21 @@ class _ConvActStats(torch.autograd.Function):
         db = gy_tot.float().sum(dim=(0, 1, 2))
         dx = dw = ds = dt = None
         if ctx.needs_input_grad[1]:
-            dw = conv3x3_wgrad(x, gy_tot, s, t, ctx.in_act).to(w.dtype)
+            halo = (0, 0) if ctx.slab is None else ctx.slab.halo()
+            dw = conv3x3_wgrad(xh, gy_tot, s, t, ctx.in_act, halo).to(w.dtype)
         if any(ctx.needs_input_grad[i] for i in (0, 3, 4)):
+            # on a slab the neighbours' cotangent rows join this rank's: its dx rows are
+            # then whole, and nothing travels back
+            gh, halo = _with_halo(gy_tot, ctx.slab)
             if ctx.in_act:
-                dx, dst = conv3x3_dgrad_act(gy_tot, _flip_swap(w), x, s, t)
+                dx, dst = conv3x3_dgrad_act(gh, _flip_swap(w), x, s, t, halo)
                 ds, dt = dst[0].to(sdt), dst[1].to(tdt)
             else:
-                dx = conv3x3_fwd(gy_tot, _flip_swap(w),
-                                 torch.zeros(x.shape[-1], device=x.device)).to(x.dtype)
+                dx = conv3x3_fwd(gh, _flip_swap(w), torch.zeros(x.shape[-1], device=x.device),
+                                 halo=halo).to(x.dtype)
                 ds = torch.zeros(x.shape[-1], device=x.device, dtype=sdt)
                 dt = torch.zeros(x.shape[-1], device=x.device, dtype=tdt)
-        return dx, dw, db.to(bdt), ds, dt, None
+        return dx, dw, db.to(bdt), ds, dt, None, None
 
 
 class _ConvBias(torch.autograd.Function):
@@ -314,11 +366,13 @@ class _ConvBias(torch.autograd.Function):
         return dx, dw, db
 
 
-def conv3x3_act_stats(x, w, bias, in_scale, in_shift, in_act: bool):
+def conv3x3_act_stats(x, w, bias, in_scale, in_shift, in_act: bool, slab=None):
     """3x3 s1 SAME conv returning ``(y, stats)``, stats = [sum y, sum y^2] per channel
     over the image. With ``in_act`` the producer's BatchNorm normalise + ReLU
-    (``in_scale``, ``in_shift``) is applied to the input inside the kernel."""
-    return _ConvActStats.apply(x, w, bias, in_scale, in_shift, bool(in_act))
+    (``in_scale``, ``in_shift``) is applied to the input inside the kernel. With
+    ``slab`` (a ``RowSlab``) x is this rank's rows of the map, y and the statistics
+    cover them (the statistics are this rank's share: sum them over the ranks)."""
+    return _ConvActStats.apply(x, w, bias, in_scale, in_shift, bool(in_act), slab)
 
 
 def conv3x3_bias(x, w, bias):

@@ -190,7 +190,9 @@ def run_inference(state: TrainState, dataset, test_cfg: dict, batch_size: int, l
 
     With a data-parallel ``mesh`` ``batch_size`` is the global batch: each rank predicts
     its rows of every batch, and rank 0 gathers the detections and returns them all
-    (the other ranks return {})."""
+    (the other ranks return {}). Under BEV spatial partitioning (the model's
+    ``bev_sharding`` over the mesh's spatial axis) the ranks of a spatial group predict
+    the same rows, and the first of them reports them."""
     model = state.model
     device = next(model.parameters()).device
     step = (make_tta_predict_step if double_flip else make_predict_step)(model, test_cfg)
@@ -199,7 +201,9 @@ def run_inference(state: TrainState, dataset, test_cfg: dict, batch_size: int, l
     start_idx, times = n_batches // 3, []
     prof_stop, prof = min(start_idx + 2, n_batches - 1), None
     rows = per_rank(batch_size, mesh)
-    first = 0 if mesh is None else mesh.rank * rows
+    first = 0 if mesh is None else mesh.data_rank * rows
+    # the ranks of a spatial group predict the same rows: the first of them reports them
+    reports = mesh is None or mesh.spatial_rank == 0
     for bi, batch in enumerate(detection_batches(dataset, batch_size, shuffle=False)):
         points = rank_rows(np.asarray(batch["points"]), mesh)
         tokens = batch["token"][first : min(first + rows, batch["n_valid"])]
@@ -214,7 +218,8 @@ def run_inference(state: TrainState, dataset, test_cfg: dict, batch_size: int, l
                 torch.cuda.synchronize(device)
             if start_idx <= bi < 2 * start_idx:
                 times.append((time.perf_counter() - t0) / rows)
-        for part in gather_to_main(predictions_to_host(preds, tokens), mesh) or ():
+        mine = predictions_to_host(preds, tokens) if reports else {}
+        for part in gather_to_main(mine, mesh) or ():
             detections.update(part)
         if prof is not None and bi == prof_stop:
             path = stop_trace(prof, profile_dir, "inference", device)

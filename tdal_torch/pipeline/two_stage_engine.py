@@ -32,7 +32,7 @@ from tdal_torch.models.two_stage import (
     get_box_centers, proposal_draws, proposal_targets, roi_head_draws, roi_losses,
     two_stage_post_process,
 )
-from tdal_torch.parallel.mesh import rank_rows, sum_logs, world_size
+from tdal_torch.parallel.mesh import data_size, rank_rows, sum_logs
 from tdal_torch.pipeline.detector_engine import TARGET_KEYS
 from tdal_torch.runtime.train_state import TrainState
 
@@ -78,7 +78,7 @@ class TwoStageEngine(nn.Module):
         dropout keep-masks (B, roi_per_image, width). Under an active data-parallel mesh
         ``b`` is this rank's rows: they are drawn over the global batch (from the same
         generator on every rank) and this rank's rows kept."""
-        g = b * world_size()
+        g = b * data_size()
         proposal = proposal_draws(g, k, generator, device)
         dropout = roi_head_draws(self.roi_head, g, self.roi_cfg.roi_per_image, generator,
                                  device)

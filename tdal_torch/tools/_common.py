@@ -1,5 +1,4 @@
-"""What the port's CLIs share: the ``--device`` option and the refusal of options
-whose port waits (ROADMAP.md section 1)."""
+"""What the port's CLIs share: the ``--device`` option and the tools' shards."""
 
 from __future__ import annotations
 
@@ -7,10 +6,6 @@ from __future__ import annotations
 def add_device(parser):
     parser.add_argument("--device", default=None,
                         help="torch device (default: cuda; 'cpu' runs on the CPU)")
-
-
-def refuse(what: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md section 1)")
 
 
 def shards(data: dict, split: int):

@@ -8,7 +8,13 @@ directory that ``tdal``'s ``CheckpointManager`` wrote (its latest step, read wit
 orbax and converted; ``tdal_torch.convert.load_tdal_checkpoint``). A
 ``TwoStageDetector`` config runs ``run_two_stage_inference`` (sqrt-rescored RoI head
 predictions) with a two-stage checkpoint. ``--profile_dir`` traces three batches of
-the middle third (``run_inference``'s hook). Spatial sharding is not ported yet.
+the middle third (``run_inference``'s hook).
+
+``--spatial_shards N`` (N > 1) spatially partitions the BEV stack of one batch over N
+ranks (tdal's ``spatial_sharding``; ``tdal_torch.parallel.mesh``): N processes of one
+spatial group, over NCCL on the first N cards, or with ``--device cpu`` over gloo on the
+CPU. Fewer cards than N refuse. Each rank predicts the whole batch from its rows of the
+canvas; rank 0 logs and writes ``prediction.pkl``.
 """
 
 import argparse
@@ -27,12 +33,13 @@ from tdal_torch.pipeline.two_stage_run import run_two_stage_inference
 from tdal_torch.pipeline.track_extraction import create_pd_detection
 from tdal_torch.runtime.checkpoint import is_tdal_checkpoint
 from tdal_torch.runtime.config import Config
-from tdal_torch.runtime.logging_utils import create_logger, fix_seed
+from tdal_torch.parallel.mesh import is_main, spatial_sharding, spawn
+from tdal_torch.runtime.logging_utils import create_logger, fix_seed, quiet_logger
 from tdal_torch.runtime.train_state import TrainState, checkpoint_file
-from tdal_torch.tools._common import add_device, refuse
+from tdal_torch.tools._common import add_device
 
 
-def parse_args():
+def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="Test a detector")
     parser.add_argument("config", help="config file path")
     parser.add_argument("--work_dir", required=True)
@@ -47,20 +54,39 @@ def parse_args():
     parser.add_argument("--evaluate", action="store_true", help="write det_annos/proto")
     parser.add_argument("--profile_dir", default=None,
                         help="write a torch.profiler trace of three middle batches there")
-    parser.add_argument("--spatial_shards", type=int, default=1)
+    parser.add_argument("--spatial_shards", type=int, default=1,
+                        help="split the BEV canvas H over N ranks (one batch's RPN and "
+                             "head over N cards, or N CPU processes with --device cpu)")
     add_device(parser)
-    return parser.parse_args()
+    return parser.parse_args(argv)
 
 
-def main():
-    args = parse_args()
-    if args.spatial_shards > 1:
-        refuse("--spatial_shards")
+def main(argv=None):
+    args = parse_args(argv)
+    n = args.spatial_shards
+    if n < 1:
+        raise ValueError(f"--spatial_shards must be 1 or more, got {n}")
+    if n == 1:
+        return run(None, args)
+    if args.device is not None and torch.device(args.device).type == "cpu":
+        return spawn(run, (args,), devices=["cpu"] * n, backend="gloo", spatial=n)
+    cards = torch.cuda.device_count()
+    if cards < n:
+        raise RuntimeError(f"--spatial_shards {n} needs {n} cards; this machine has {cards}")
+    return spawn(run, (args,), devices=[f"cuda:{i}" for i in range(n)], backend="nccl",
+                 spatial=n)
+
+
+def run(mesh, args):
+    """The test on one device (``mesh`` None) or as one rank of a spatial group."""
     cfg = Config.fromfile(args.config)
     work_dir = Path(args.work_dir)
-    work_dir.mkdir(parents=True, exist_ok=True)
-    logger = create_logger(work_dir / "test.log")
+    main = is_main(mesh)
+    if main:
+        work_dir.mkdir(parents=True, exist_ok=True)
+    logger = create_logger(work_dir / "test.log") if main else quiet_logger()
     fix_seed(0)
+    device = args.device if mesh is None else mesh.device
 
     voxel_cfg = build_voxel_config(cfg.voxel_generator, train=False)
     two_stage = cfg.model["type"] == "TwoStageDetector"
@@ -68,10 +94,15 @@ def main():
         first = build_detector(cfg.model["first_stage_cfg"], voxel_cfg, device="cpu")
         model = build_two_stage_engine(cfg.model, voxel_cfg,
                                        build_test_cfg(cfg.test_cfg, first, voxel_cfg),
-                                       device=args.device)
+                                       device=device)
         detector = model.first
     else:
-        model = detector = build_detector(cfg.model, voxel_cfg, device=args.device)
+        model = detector = build_detector(cfg.model, voxel_cfg, device=device)
+    if mesh is not None:
+        # the two-stage engine's first stage too: its feature map comes back whole
+        detector.bev_sharding = spatial_sharding(mesh)
+        logger.info(f"spatial partitioning: BEV canvas H over {mesh.spatial} devices "
+                    f"({mesh.backend})")
     test_cfg = build_test_cfg(cfg.test_cfg, detector, voxel_cfg)
     assigner = build_assigner(cfg.train_cfg["assigner"], detector)
     split_key = "train" if args.split in ("train", "mytrain") else "val"
@@ -98,7 +129,9 @@ def main():
     else:
         detections = run_inference(state, ds, test_cfg, batch_size, logger,
                                    speed_test=args.speed_test, double_flip=args.double_flip,
-                                   profile_dir=args.profile_dir)
+                                   profile_dir=args.profile_dir if main else None, mesh=mesh)
+    if not main:
+        return None
     dump_pickle(detections, work_dir / "prediction.pkl")
     logger.info(f"saved prediction.pkl ({len(detections)} frames)")
     if args.evaluate:

@@ -458,7 +458,7 @@ def test_phase12_comparison_fails_the_trunc_control():
                 m.offset.bias.uniform_(-0.3, 0.3, generator=gen)
     control = {"trunc": (model, chip_smoke.trunc_sampling, "grad_err_over_tol")}
     out = chip_smoke.check_step_with_controls(model, _batch(2, seed=3), torch.device("cpu"),
-                                              cfg, 4, control, stat_noise=True)
+                                              cfg, 4, control, stat_noise=True).result()
     assert out["grad_err_over_tol"] == 0.0  # the same device on both sides
     assert out["controls"]["trunc"]["grad_err_over_tol"] > 10
     coords = chip_smoke.knife_edges(model, torch.from_numpy(_batch(2, seed=3)["points"]),

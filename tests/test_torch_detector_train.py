@@ -511,7 +511,7 @@ def test_phase6_comparison_fails_both_controls(tmp_path):
     model_bf16.load_state_dict(model.state_dict())
     batch = collate_detection([ds[i] for i in range(4)])
     out = chip_smoke.check_step_against_cpu(model, model_bf16, batch, torch.device("cpu"),
-                                            cfg, 4)
+                                            cfg, 4).result()
     assert out["grad_err_over_tol"] == 0.0  # the same device on both sides
     for name, reading in out["controls"].items():
         print(name, json.dumps(reading))

@@ -5,7 +5,7 @@
   kernel.
 - No source of tdal_torch, nor chip_smoke.py, imports one (AST scan).
 - Without a card, the entry points refuse the default device (CUDA) instead of
-  running on the CPU.
+  running on the CPU; ``dist_test`` too, with and without ``--spatial_shards``.
 """
 
 import ast
@@ -55,7 +55,8 @@ def test_importing_the_port_loads_no_reference_module():
     for name in ("tdal_torch.pipeline.labeler_run", "tdal_torch.ops.sparse_conv",
                  "tdal_torch.models.scn_sparse", "tdal_torch.models.scn",
                  "tdal_torch.models.two_stage", "tdal_torch.pipeline.two_stage_engine",
-                 "tdal_torch.pipeline.two_stage_run"):
+                 "tdal_torch.pipeline.two_stage_run", "tdal_torch.parallel.mesh",
+                 "tdal_torch.parallel.controls", "tdal_torch.tools.dist_test"):
         assert name in loaded, name
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -137,3 +138,16 @@ def test_voxelnet_and_two_stage_builders_refuse_the_cpu_unless_asked(no_card, co
             det = build_detector(model, vox, device="cpu")
             assert det.head.dcn_head and next(det.parameters()).device.type == "cpu"
 
+
+
+def test_dist_test_defaults_to_the_card(no_card, tmp_path):
+    """``dist_test`` without ``--device`` runs on the card: without one it refuses, on one
+    process and with ``--spatial_shards`` (which counts the cards first)."""
+    from tdal_torch.tools import dist_test
+
+    args = ["configs/synthetic/pp_tiny.py", "--work_dir", str(tmp_path), "--checkpoint",
+            str(tmp_path / "none.pt"), "--info_path", str(tmp_path / "none.pkl")]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dist_test.main([str(ROOT / args[0]), *args[1:]])
+    with pytest.raises(RuntimeError, match="needs 2 cards; this machine has 0"):
+        dist_test.main([str(ROOT / args[0]), *args[1:], "--spatial_shards", "2"])

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain twins, on the card: the fused
 PointNet-seg kernels (K1, K2) and the 3x3 conv kernels (K3, K4, K5/K6, K7, with their
-tolerances below), one detector train step through them, and phase 13 of
+tolerances below; also in their row halo form), one detector train step through them,
+a chained pair on two ranks splitting the rows (BEV spatial partitioning), ``dist_test
+--spatial_shards 2`` over NCCL where there are two cards, and phase 13 of
 ``chip_smoke.py`` (a checkpoint of tdal's read without orbax and served on the card).
 
 This file imports no jax, so it also runs where only PyTorch is installed:
@@ -268,6 +270,82 @@ def test_conv_autograd_on_card_matches_the_cpu(cuda, in_act):
         grads.append([y.detach().cpu(), st.detach().cpu()] + [a.grad.cpu() for a in args])
     for got, want in zip(*grads):
         assert max_rel_err(got, want) <= 1e-4
+
+
+HALOS = [(1, 0), (0, 1), (1, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("in_act", [False, True])
+@pytest.mark.parametrize("halo", HALOS, ids=lambda h: f"halo{h[0]}{h[1]}")
+# the 16-byte copies, and ragged channels (element copies) on an image whose rows are
+# not a multiple of the 8-row tile
+@pytest.mark.parametrize("shape", [(2, 13, 21, 16, 24), (1, 9, 11, 5, 7)])
+def test_conv_halo_forms_match_twins(cuda, shape, halo, in_act, dtype):
+    """The row halo form of K3, K4 (forward and as the dgrad), K5/K6 and K7 against
+    their twins with the same ``halo``: (1, 0) is a slab at the image's bottom edge,
+    (0, 1) at its top edge, (1, 1) inside; the input affine on or off (K3's halo rows
+    take it, the padding never). Each call counts once in ``launches`` and in
+    ``halo_launches``."""
+    b_, h, w_, c, co = shape
+    top, bottom = halo
+    x, w, b, s, t, gy = _conv_inputs(cuda, b_, h + top + bottom, w_, c, co, dtype)
+    g = gy[:, top : top + h].contiguous()  # the own rows' cotangent
+    xo = x[:, top : top + h].contiguous()  # the own rows of the input
+    tol_y, tol_acc = CONV_TOL[dtype]
+    before, before_halo = dict(cv.launches), dict(cv.halo_launches)
+    wt = cv._flip_swap(w)
+    zero = torch.zeros(c, device=cuda)
+    y, stats = cv.conv3x3_fwd_stats(x, w, b, s, t, in_act, halo)
+    y4 = cv.conv3x3_fwd(x, w, b, None, in_act, halo)  # K4 with a shift and ReLU
+    dx = cv.conv3x3_fwd(gy, wt, zero, halo=halo)
+    dw = cv.conv3x3_wgrad(x, g, s, t, in_act, halo)
+    t7 = t - 1.0  # shifts of both signs, so that K7's mask varies
+    dx7, st7 = cv.conv3x3_dgrad_act(gy, wt, xo, s, t7, halo)
+    torch.cuda.synchronize()
+    ones = {"conv3x3_fwd_stats": 1, "conv3x3_fwd": 2, "conv3x3_wgrad": 1,
+            "conv3x3_dgrad_act": 1}
+    assert {k: cv.launches[k] - before[k] for k in before} == ones
+    assert {k: cv.halo_launches[k] - before_halo[k] for k in before_halo} == ones
+    assert y.shape == (b_, h, w_, co) and dx.shape == dx7.shape == (b_, h, w_, c)
+    y_t, stats_t = cv.conv3x3_fwd_stats_plain(x, w, b, s, t, in_act, halo)
+    assert max_rel_err(y.float(), y_t.float()) <= tol_y
+    assert max_rel_err(stats, stats_t) <= tol_acc
+    y4_t = cv.conv3x3_fwd_plain(x, w, b, None, in_act, halo)
+    assert max_rel_err(y4.float(), y4_t.float()) <= tol_y
+    assert max_rel_err(dx.float(), cv.conv3x3_fwd_plain(gy, wt, zero, halo=halo).float()) \
+        <= tol_y
+    assert max_rel_err(dw, cv.conv3x3_wgrad_plain(x, g, s, t, in_act, halo)) <= tol_acc
+    dx7_t, st7_t = cv.conv3x3_dgrad_act_plain(gy, wt, xo, s, t7, halo)
+    assert max_rel_err(dx7.float(), dx7_t.float()) <= tol_y
+    dxh = cv._conv_f32(gy.float(), wt.float(), halo) * (xo.float() * s + t7 > 0)
+    scale = torch.stack([(dxh * xo.float()).abs().sum(dim=(0, 1, 2)),
+                         dxh.abs().sum(dim=(0, 1, 2))])
+    assert float(((st7 - st7_t).abs() / scale.clamp_min(1e-30)).max()) <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_conv_halo_zero_launches_the_whole_image_kernel(cuda, dtype):
+    """``halo=(0, 0)`` is the whole-image entry point (no halo launch counted), bit for
+    bit the call without ``halo``; and the halo form on a slab with its neighbours'
+    rows gives the whole image's rows (K3 with the input affine: the halo rows take it,
+    which zero padding there would not)."""
+    x, w, b, s, t, gy = _conv_inputs(cuda, 2, 24, 20, 16, 32, dtype)
+    before = dict(cv.halo_launches)
+    y0, st0 = cv.conv3x3_fwd_stats(x, w, b, s, t, True, (0, 0))
+    y1, st1 = cv.conv3x3_fwd_stats(x, w, b, s, t, True)
+    dw0 = cv.conv3x3_wgrad(x, gy, s, t, True, (0, 0))
+    dw1 = cv.conv3x3_wgrad(x, gy, s, t, True)
+    torch.cuda.synchronize()
+    assert cv.halo_launches == before
+    assert torch.equal(y0, y1) and torch.equal(st0, st1) and torch.equal(dw0, dw1)
+    ys = [cv.conv3x3_fwd_stats(x[:, max(a - 1, 0) : min(bb + 1, 24)].contiguous(), w, b, s,
+                               t, True, (int(a > 0), int(bb < 24)))[0]
+          for a, bb in ((0, 7), (7, 16), (16, 24))]
+    tol_y = CONV_TOL[dtype][0]
+    assert max_rel_err(torch.cat(ys, 1).float(), y1.float()) <= tol_y
 
 
 @pytest.mark.gpu
@@ -722,6 +800,157 @@ def test_fused_conv_bn_chain_data_parallel_on_card(cuda, tmp_path):
                                   atol=1e-6 * max(1.0, float(v.abs().max()))), k
     for k, v in ranks[0]["grads"].items():
         assert torch.equal(v, ranks[1]["grads"][k]), k
+
+
+def _spatial_chain_rank(mesh, inputs, out_dir):
+    """A spawned rank of ``test_fused_conv_bn_chain_spatial_on_card``: the chain on this
+    rank's rows of the whole batch, the loss on the gathered output."""
+    from pathlib import Path
+
+    from tdal_torch.parallel import mesh as pmesh
+
+    a, b, x, w = (t.to(mesh.device) for t in torch.load(inputs, weights_only=False))
+    slab = pmesh.spatial_slab(mesh, x.shape[1])
+    before, before_halo = dict(cv.launches), dict(cv.halo_launches)
+    with pmesh.scope(mesh):
+        y, pre = a.train()(slab.take(x), emit_raw=True, slab=slab)
+        out = slab.gather(b.train()(y, pre=pre, slab=slab))
+        (out * w).mean().backward()
+        pmesh.all_reduce_grads([*a.parameters(), *b.parameters()], mesh)
+    torch.cuda.synchronize()
+    named = {**{f"a.{k}": v for k, v in a.state_dict().items()},
+             **{f"b.{k}": v for k, v in b.state_dict().items()}}
+    grads = {**{f"a.{n}": p.grad for n, p in a.named_parameters()},
+             **{f"b.{n}": p.grad for n, p in b.named_parameters()}}
+    torch.save(dict(grads={k: g.double().cpu() for k, g in grads.items()},
+                    running={k: v.double().cpu() for k, v in named.items() if "running" in k},
+                    launches={k: cv.launches[k] - before[k] for k in before},
+                    halo={k: cv.halo_launches[k] - before_halo[k] for k in before}),
+               Path(out_dir) / f"{mesh.rank}.pt")
+
+
+@pytest.mark.gpu
+def test_fused_conv_bn_chain_spatial_on_card(cuda, tmp_path):
+    """BEV spatial partitioning on the card: two gloo ranks sharing it run a chained
+    FusedConvBN pair on their row slabs (13 / 12 rows of 25) of the whole batch, K3, K7
+    and K5 in the halo form (the first layer's input takes no gradient: no K4), the BN moments and counts all-reduced, the loss on the
+    gathered output. The gradients (summed over the ranks) and the running statistics
+    equal the single-process step's, as the data-parallel test holds them."""
+    import copy
+
+    from tdal_torch.models.layers import FusedConvBN
+    from tdal_torch.parallel import mesh as pmesh
+
+    g = torch.Generator().manual_seed(0)
+    a = FusedConvBN(16, 32, use_bias=True, momentum=0.1, eps=1e-5)
+    b = FusedConvBN(32, 24)
+    with torch.no_grad():
+        for p in (*a.parameters(), *b.parameters()):
+            noise = torch.randn(p.shape, generator=g)
+            p.copy_(noise * 0.1 if p.dim() == 4 else 1.0 + 0.5 * noise)
+    x = torch.randn(2, 25, 20, 16, generator=g)
+    w = torch.randn(2, 25, 20, 24, generator=g)
+    torch.save((a, b, x, w), tmp_path / "inputs.pt")
+
+    def single(perm):
+        aa, bb = copy.deepcopy(a).to(cuda).train(), copy.deepcopy(b).to(cuda).train()
+        y, pre = aa(x[perm].to(cuda), emit_raw=True)
+        (bb(y, pre=pre) * w[perm].to(cuda)).mean().backward()
+        torch.cuda.synchronize()
+        named = {**{f"a.{k}": v for k, v in aa.state_dict().items()},
+                 **{f"b.{k}": v for k, v in bb.state_dict().items()}}
+        grads = {**{f"a.{n}": p.grad for n, p in aa.named_parameters()},
+                 **{f"b.{n}": p.grad for n, p in bb.named_parameters()}}
+        return dict(grads={k: v.double().cpu() for k, v in grads.items()},
+                    running={k: v.double().cpu() for k, v in named.items() if "running" in k})
+
+    want, permuted = single([0, 1]), single([1, 0])
+    pmesh.spawn(_spatial_chain_rank, (str(tmp_path / "inputs.pt"), str(tmp_path)),
+                devices=["cuda:0", "cuda:0"], backend="gloo", spatial=2)
+    ranks = [torch.load(tmp_path / f"{r}.pt", weights_only=False) for r in range(2)]
+    for got in ranks:
+        assert got["launches"] == got["halo"] == {
+            "conv3x3_fwd_stats": 2, "conv3x3_fwd": 0, "conv3x3_wgrad": 2,
+            "conv3x3_dgrad_act": 1}
+        for k, v in want["grads"].items():
+            floor = float((v - permuted["grads"][k]).abs().max())
+            tol = max(8 * floor, 1e-5 * float(v.abs().max()) + 1e-7)
+            err = float((got["grads"][k] - v).abs().max())
+            assert err <= tol, f"grad {k}: {err:.3e} > {tol:.3e}"
+        for k, v in want["running"].items():
+            assert torch.allclose(got["running"][k], v, rtol=1e-5,
+                                  atol=1e-6 * max(1.0, float(v.abs().max()))), k
+    for k, v in ranks[0]["grads"].items():
+        assert torch.equal(v, ranks[1]["grads"][k]), k
+
+
+@pytest.mark.gpu
+def test_dist_test_spatial_shards_over_nccl(cuda, tmp_path, monkeypatch):
+    """``dist_test --spatial_shards 2`` over NCCL on two cards writes the
+    ``prediction.pkl`` of ``--spatial_shards 1`` on one card (pp_tiny, fresh weights,
+    two synthetic frames; ``assert_same_detections``), with TF32 off in this process
+    and, through ``NVIDIA_TF32_OVERRIDE``, in the spawned ranks: with it on, cuDNN's
+    algorithms for a row slab and for the whole map differ by 1e-4 of the maps."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    monkeypatch.setenv("NVIDIA_TF32_OVERRIDE", "0")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    import pickle
+    from pathlib import Path
+
+    import numpy as np
+
+    from tdal_torch.data.synthetic import make_synthetic_dataset
+    from tdal_torch.models.builder import build_detector, build_voxel_config
+    from tdal_torch.runtime.config import Config
+    from tdal_torch.tools import dist_test
+
+    root = Path(__file__).resolve().parent.parent
+    cfg_path = root / "configs/synthetic/pp_tiny.py"
+    make_synthetic_dataset(tmp_path / "val", n_scenes=1, n_frames=2, seed=2,
+                           n_background=800, points_per_object=64)
+    cfg = Config.fromfile(cfg_path)
+    model = build_detector(cfg.model, build_voxel_config(cfg.voxel_generator), "cpu", 0)
+    torch.save({"model": model.state_dict()}, tmp_path / "model.pt")
+    out = {}
+    for n in (1, 2):
+        work = tmp_path / f"shards{n}"
+        dist_test.main([str(cfg_path), "--checkpoint", str(tmp_path / "model.pt"),
+                        "--info_path", str(tmp_path / "val" / "infos.pkl"), "--batch_size",
+                        "2", "--work_dir", str(work), "--spatial_shards", str(n)])
+        out[n] = pickle.loads((work / "prediction.pkl").read_bytes())
+    assert "(nccl)" in (tmp_path / "shards2" / "test.log").read_text()
+    assert out[1].keys() == out[2].keys() and len(out[1]) == 2
+    for token, want in out[1].items():
+        assert_same_detections(out[2][token], want, token)
+
+
+def assert_same_detections(got, want, what, tol=1e-5):
+    """One frame's detections (``predictions_to_host``'s dict) equal but for the order
+    of near-tied scores and the knife edge of the post-NMS cut: every box of one side
+    matches one of the other (label equal, score and box within ``tol`` of max(1, |x|)),
+    but for boxes whose score lies within ``tol`` of the cut (the higher of the two
+    sides' lowest kept scores). Fresh weights leave many scores tied to 1e-7, which
+    the cuDNN convs of a row slab and of the whole map may order either way."""
+    import numpy as np
+
+    sg, sw = got["scores"], want["scores"]
+    used, alone = np.zeros(len(sw), bool), []
+    for i, score in enumerate(sg):
+        near = (~used & (want["label_preds"] == got["label_preds"][i])
+                & (np.abs(sw - score) <= tol * max(1.0, abs(score)))
+                & (np.abs(want["box3d_lidar"] - got["box3d_lidar"][i])
+                   <= tol * np.maximum(1.0, np.abs(got["box3d_lidar"][i]))).all(axis=1))
+        hit = np.flatnonzero(near)
+        if len(hit):
+            used[hit[0]] = True
+        else:
+            alone.append(float(score))
+    alone += [float(v) for v in sw[~used]]
+    cut = max(float(sg.min(initial=np.inf)), float(sw.min(initial=np.inf)))
+    assert all(v <= cut + tol for v in alone), (what, alone, cut)
+    assert len(alone) <= max(2, len(sw) // 10), (what, len(alone))
 
 
 @pytest.mark.gpu
