@@ -8,7 +8,8 @@ nothing. The loop takes the first ``T`` live candidates at a time, resolves them
 themselves on the host (a ``T`` x ``T`` recurrence), and lets the survivors suppress
 every candidate at once from one (``T``, m) block of overlaps: a round per ``T`` live
 candidates, each of (T, m) polygon clippings, not a 4096^2 matrix. Each round waits
-for the device (the greedy decision is sequential), as tdal's early-exit loop does.
+for the device (the greedy decision is sequential), as tdal's early-exit loop does; the
+rounds and waits are counted (``runtime/tracing.py``).
 
 Outputs are ``(idx (post_max,), valid (post_max,))``: indices into the original
 arrays, in keep order, and which slots hold a kept candidate (the rest index 0).
@@ -21,6 +22,7 @@ import torch
 
 from tdal_torch.core.geometry import center_to_corner_box2d
 from tdal_torch.core.iou import quad_intersection_area
+from tdal_torch.runtime.tracing import count
 
 _TILE = 32
 _EPS = 1e-8
@@ -30,13 +32,19 @@ def _tiled_greedy(alive, suppresses, post_max: int, tile: int):
     """Sequential greedy over candidates in sorted order. ``alive`` (m,) bool: live
     candidates; ``suppresses(pos)`` -> (len(pos), m) bool: whether candidate pos[i],
     if kept, suppresses each candidate. Returns the kept positions (at most
-    ``post_max``), in order."""
+    ``post_max``), in order. Counts ``nms.calls``, ``nms.rounds``, ``nms.host_syncs``
+    (the waits for the device: the live set's ``nonzero``, then a round's two copies)
+    and ``nms.kept``."""
     alive = alive.clone()
     kept: list = []
+    rounds = syncs = 0
     while len(kept) < post_max:
         pos = torch.nonzero(alive).flatten()[:tile]
+        syncs += 1
         if pos.numel() == 0:
             break
+        rounds += 1
+        syncs += 2
         over = suppresses(pos)
         within = over[:, pos].cpu().numpy()
         keep = np.ones(len(pos), bool)
@@ -47,7 +55,12 @@ def _tiled_greedy(alive, suppresses, post_max: int, tile: int):
         alive &= ~(over & keep_t[:, None]).any(dim=0)
         alive[pos] = False
         kept.extend(pos.cpu().numpy()[keep].tolist())
-    return kept[:post_max]
+    kept = kept[:post_max]
+    count("nms.calls")
+    count("nms.rounds", rounds)
+    count("nms.host_syncs", syncs)
+    count("nms.kept", len(kept))
+    return kept
 
 
 def _fixed(order, kept, post_max: int):

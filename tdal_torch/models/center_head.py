@@ -35,6 +35,7 @@ from torch import nn
 from tdal_torch.core.nms import circle_nms, rotated_nms
 from tdal_torch.models.layers import BatchNorm, FusedConvBN, conv_nhwc, rows_conv
 from tdal_torch.parallel.mesh import all_reduce_sum
+from tdal_torch.runtime.tracing import span
 
 _HEAD_BN = dict(momentum=0.1, eps=1e-5)
 COMMON_HEADS = {"reg": (2, 2), "height": (1, 2), "dim": (3, 2), "rot": (2, 2)}
@@ -344,12 +345,15 @@ def post_process_task(batch_box_preds, batch_hm, test_cfg, task_id: int = 0):
 
 
 def predict(preds_dicts, test_cfg, num_classes: Sequence[int], activated: bool = False):
-    """Decode and NMS per task, labels offset by the classes of the earlier tasks, the
-    tasks' results concatenated along the box axis."""
+    """Decode and NMS per task (the spans ``predict.decode`` and ``predict.nms``), labels
+    offset by the classes of the earlier tasks, the tasks' results concatenated along
+    the box axis."""
     outs, flag = [], 0
     for task_id, preds in enumerate(preds_dicts):
-        boxes, hm = decode_preds(preds, test_cfg, activated=activated)
-        r = post_process_task(boxes, hm, test_cfg, task_id)
+        with span("predict.decode"):
+            boxes, hm = decode_preds(preds, test_cfg, activated=activated)
+        with span("predict.nms"):
+            r = post_process_task(boxes, hm, test_cfg, task_id)
         r["label_preds"] = r["label_preds"] + flag
         flag += num_classes[task_id]
         outs.append(r)

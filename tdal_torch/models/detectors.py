@@ -8,6 +8,9 @@ voxelize on the device.
   the sparse submanifold one (``scn_sparse``) where the grid has more than 2^24 cells
   (the Waymo grid: 40 x 1504 x 1504), else the dense one (``scn``), as tdal picks.
 
+The forward's phases are the spans ``model.voxelize``, ``model.reader``,
+``model.backbone`` (VoxelNet) and ``model.rpn_head`` (``runtime/tracing.py``).
+
 Train or eval follows ``module.training``; ``return_feature=True`` also returns the
 RPN's BEV feature map, which the two-stage detector samples. ``dcn_head`` swaps each
 task's SepHead for a ``DCNSepHead`` (``tdal_torch.models.dcn``).
@@ -38,19 +41,23 @@ from tdal_torch.models.rpn import RPN
 from tdal_torch.models.scn import MiddleBackbone
 from tdal_torch.models.scn_sparse import SparseMiddleBackbone
 from tdal_torch.parallel.mesh import spatial_slab
+from tdal_torch.runtime.tracing import span
 
 
 def _dense_stack(rpn, head, bev, bev_sharding, return_feature: bool):
-    """RPN + CenterHead on the BEV map, spatially partitioned under ``bev_sharding``."""
-    if bev_sharding is None:
-        x = rpn(bev)
-        preds = head(x)
-        return (preds, x) if return_feature else preds
-    slab = spatial_slab(bev_sharding.mesh, bev.shape[1], int(np.prod(rpn.ds_layer_strides)))
-    x = rpn(slab.take(bev), slab)
-    out = rpn.out_slab(slab)
-    preds = head(x, slab=out)
-    return (preds, out.gather(x)) if return_feature else preds
+    """RPN + CenterHead on the BEV map, spatially partitioned under ``bev_sharding``:
+    the span ``model.rpn_head``."""
+    with span("model.rpn_head"):
+        if bev_sharding is None:
+            x = rpn(bev)
+            preds = head(x)
+            return (preds, x) if return_feature else preds
+        slab = spatial_slab(bev_sharding.mesh, bev.shape[1],
+                            int(np.prod(rpn.ds_layer_strides)))
+        x = rpn(slab.take(bev), slab)
+        out = rpn.out_slab(slab)
+        preds = head(x, slab=out)
+        return (preds, out.gather(x)) if return_feature else preds
 
 
 class PointPillars(nn.Module):
@@ -89,11 +96,13 @@ class PointPillars(nn.Module):
         return [len(t["class_names"]) for t in self.tasks]
 
     def forward(self, points, return_feature: bool = False):
-        voxels, coords, num_points, n_vox = voxelize_batch(points, self.voxel_cfg)
-        feats = self.reader(voxels, num_points, coords)
-        valid = torch.arange(feats.shape[1], device=feats.device)[None, :] < n_vox[:, None]
-        nx, ny, _ = (int(g) for g in self.voxel_cfg.grid_size)
-        canvas = scatter_to_bev(feats * valid[..., None], coords, valid, ny, nx)
+        with span("model.voxelize"):
+            voxels, coords, num_points, n_vox = voxelize_batch(points, self.voxel_cfg)
+        with span("model.reader"):
+            feats = self.reader(voxels, num_points, coords)
+            valid = torch.arange(feats.shape[1], device=feats.device)[None, :] < n_vox[:, None]
+            nx, ny, _ = (int(g) for g in self.voxel_cfg.grid_size)
+            canvas = scatter_to_bev(feats * valid[..., None], coords, valid, ny, nx)
         return _dense_stack(self.rpn, self.head, canvas, self.bev_sharding, return_feature)
 
 
@@ -136,8 +145,11 @@ class VoxelNet(nn.Module):
         return [len(t["class_names"]) for t in self.tasks]
 
     def forward(self, points, return_feature: bool = False):
-        voxels, coords, num_points, n_vox = voxelize_batch(points, self.voxel_cfg)
-        feats = self.reader(voxels, num_points)
-        valid = torch.arange(feats.shape[1], device=feats.device)[None, :] < n_vox[:, None]
-        bev = self.backbone(feats * valid[..., None], coords, valid)
+        with span("model.voxelize"):
+            voxels, coords, num_points, n_vox = voxelize_batch(points, self.voxel_cfg)
+        with span("model.reader"):
+            feats = self.reader(voxels, num_points)
+            valid = torch.arange(feats.shape[1], device=feats.device)[None, :] < n_vox[:, None]
+        with span("model.backbone"):
+            bev = self.backbone(feats * valid[..., None], coords, valid)
         return _dense_stack(self.rpn, self.head, bev, self.bev_sharding, return_feature)

@@ -11,6 +11,9 @@ over the valid voxels only.
 Parameters keep tdal's names: ``w_in``, ``w_blk{i}_{j}_a`` / ``_b``, ``w_down{i}``
 (27, Cin, Cout) and ``w_z`` (3, C, C); ``norms[k]`` is flax's ``MaskedBatchNorm_k``
 (the order in which tdal's forward creates them).
+
+``occupancy`` keeps each level's occupied voxels of the last forward; while a profiler
+records they are also counted as ``sparse.voxels.l<level>`` (``runtime/tracing.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from tdal_torch.ops.sparse_conv import (
     down2_grid, downz_grid, scatter_dense_bev, sort_voxels, sparse_conv3d_down2,
     sparse_conv3d_downz, subm_conv3d, subm_neighbors,
 )
+from tdal_torch.runtime.tracing import count_device, recording
 
 
 def bev_channels(grid_size, channels: Sequence[int] = (16, 32, 64, 128)) -> int:
@@ -102,6 +106,9 @@ class SparseMiddleBackbone(nn.Module):
         coords, x, valid, keys = sparse_conv3d_downz(coords, x, valid, keys, grid, self.w_z,
                                                      cap)
         self.occupancy.append((valid.sum(1), cap))
+        if recording():
+            for i, (n, _) in enumerate(self.occupancy):
+                count_device(f"sparse.voxels.l{i}", n)
         grid = downz_grid(grid)
         x = bn_relu(x, valid)
         return scatter_dense_bev(coords, x, valid, grid)

@@ -25,13 +25,18 @@ sorted by linearised key, invalid rows last with the int32-max sentinel
   there and would not).
 
 A table holds global rows of the flattened (B * V) buffer; a missing neighbour points
-at one zero row appended past the last.
+at one zero row appended past the last. Each forward table's gathers are counted
+(``runtime/tracing.py``): ``sparse.rows_gathered``, K x the table's rows, from its
+shape; while a profiler records, ``sparse.pairs``, the taps that found a voxel, so that
+their ratio is the share of gathered rows that are real neighbour pairs.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from tdal_torch.runtime import tracing
 
 SENTINEL = 2**31 - 1  # int32 max: invalid rows sort last
 
@@ -93,6 +98,13 @@ def subm_neighbors(coords, valid, keys, grid):
     return _lookup(keys, nb, _in_grid(nb, grid) & valid[..., None], grid)
 
 
+def _count_gathers(found):
+    """A forward table's gathers, from its (B, V_out, K) ``found``."""
+    tracing.count("sparse.rows_gathered", found.numel())
+    if tracing.recording():
+        tracing.count_device("sparse.pairs", found.sum())
+
+
 def _table(idx, found, v_in):
     """(B, V_out, K) per-sample slots into inputs of ``v_in`` rows -> a tap-major (K,
     B * V_out) table of rows of the flattened (B * v_in) inputs; a missing tap points
@@ -152,6 +164,7 @@ def subm_conv3d(coords, feats, valid, keys, grid, weights, bias=None, neighbors=
         neighbors = subm_neighbors(coords, valid, keys, grid)
     b, v, cin = feats.shape
     fwd = _table(*neighbors, v)
+    _count_gathers(neighbors[1])
     out = _GatherConv.apply(feats.reshape(b * v, cin), weights, fwd, None)
     out = out.reshape(b, v, -1)
     if bias is not None:
@@ -213,6 +226,7 @@ def _strided_conv(coords, feats, valid, keys, grid, weights, out, offsets, strid
     o = torch.div(num, st, rounding_mode="floor")
     ok = (o * st == num).all(-1) & _in_grid(o, out_grid) & valid[..., None]
     tidx, tfound = _lookup(out_keys, o, ok, out_grid)
+    _count_gathers(found)
     y = _GatherConv.apply(feats.reshape(b * v, cin), weights, _table(idx, found, v),
                           _table(tidx, tfound, v_out)).reshape(b, v_out, -1)
     if bias is not None:

@@ -79,6 +79,7 @@ import torch.distributed as dist
 
 from tdal_torch.device import resolve_device
 from tdal_torch.runtime.logging_utils import quiet_logger
+from tdal_torch.runtime.tracing import span
 
 BUCKET_BYTES = 25 * 2**20  # gradient and broadcast buckets (DistributedDataParallel's)
 # how long a rank waits in a collective before its group fails: the other ranks wait
@@ -295,9 +296,13 @@ def start_run(mesh, batch_size: int, module: torch.nn.Module, logger):
 def rank_step(mesh, batch):
     """``with rank_step(mesh, batch) as rows:`` a step on this rank's rows of a host
     batch that every rank built whole, with ``mesh`` active; ``batch`` itself on one
-    device (``mesh`` None)."""
+    device (``mesh`` None). Under a mesh the step is the span ``dp.rank_step``."""
     with scope(mesh):
-        yield shard_batch(batch, mesh)
+        if mesh is None:
+            yield batch
+        else:
+            with span("dp.rank_step"):
+                yield shard_batch(batch, mesh)
 
 
 def rank_rows(x, mesh=None):

@@ -4,7 +4,11 @@ Port of ``tdal/pipeline/detector_engine.py``: the train step of
 ``make_detector_steps`` (the forward in train mode, BatchNorm running statistics
 updated in place, the CenterHead loss, the backward, one optimizer step), its predict
 step (``make_predict_step``: the eval forward, decode and NMS), the double-flip predict
-step (``make_tta_predict_step``) and ``predictions_to_host``. Under an active
+step (``make_tta_predict_step``) and ``predictions_to_host``. Their phases are spans
+(``runtime/tracing.py``): ``train.step`` around ``train.to_device``, ``train.forward``,
+``train.loss``, ``train.backward`` and ``train.optimizer``; ``predict.step`` around
+``predict.forward`` and ``center_head.predict``'s ``predict.decode`` and ``predict.nms``;
+``predict.to_host``. ``predict.steps`` counts the predict steps. Under an active
 data-parallel mesh the train step is given this rank's rows of the batch; its BatchNorm
 statistics and loss normalizers are global (``models/layers.py``,
 ``models/center_head.py``), and its logs are summed over the ranks.
@@ -20,6 +24,7 @@ import torch
 from tdal_torch.models.center_head import center_head_loss, predict
 from tdal_torch.models.tta import average_double_flip_preds
 from tdal_torch.parallel.mesh import sum_logs
+from tdal_torch.runtime.tracing import count, span
 from tdal_torch.runtime.train_state import TrainState
 
 TARGET_KEYS = ("hm", "anno_box", "ind", "mask", "cat")
@@ -42,18 +47,24 @@ def make_detector_steps(detector, code_weights: Sequence[float], weight: float =
     has_vel = detector.with_velocity
 
     def train_step(state: TrainState, batch):
-        device = next(state.model.parameters()).device
-        b = batch_to_device(batch, device)
-        state.model.train()
-        preds = state.model(b["points"])
-        total, logs = center_head_loss(
-            preds, {k: b[k] for k in TARGET_KEYS}, code_weights, weight=weight,
-            has_vel=has_vel,
-        )
-        state.optimizer.zero_grad(set_to_none=True)
-        total.backward()
-        state.apply_gradients()
-        return sum_logs({k: v.detach() for k, v in logs.items()})
+        with span("train.step"):
+            device = next(state.model.parameters()).device
+            with span("train.to_device"):
+                b = batch_to_device(batch, device)
+            state.model.train()
+            with span("train.forward"):
+                preds = state.model(b["points"])
+            with span("train.loss"):
+                total, logs = center_head_loss(
+                    preds, {k: b[k] for k in TARGET_KEYS}, code_weights, weight=weight,
+                    has_vel=has_vel,
+                )
+            state.optimizer.zero_grad(set_to_none=True)
+            with span("train.backward"):
+                total.backward()
+            with span("train.optimizer"):
+                state.apply_gradients()
+            return sum_logs({k: v.detach() for k, v in logs.items()})
 
     return train_step
 
@@ -67,8 +78,12 @@ def make_predict_step(detector, test_cfg: dict):
 
     @torch.no_grad()
     def predict_step(state: TrainState, points):
-        state.model.eval()
-        return predict(state.model(points), test_cfg, num_classes)
+        count("predict.steps")
+        with span("predict.step"):
+            state.model.eval()
+            with span("predict.forward"):
+                preds = state.model(points)
+            return predict(preds, test_cfg, num_classes)
 
     return predict_step
 
@@ -81,9 +96,12 @@ def make_tta_predict_step(detector, test_cfg: dict):
 
     @torch.no_grad()
     def predict_step(state: TrainState, points):
-        state.model.eval()
-        averaged = [average_double_flip_preds(p) for p in state.model(points)]
-        return predict(averaged, test_cfg, num_classes, activated=True)
+        count("predict.steps")
+        with span("predict.step"):
+            state.model.eval()
+            with span("predict.forward"):
+                averaged = [average_double_flip_preds(p) for p in state.model(points)]
+            return predict(averaged, test_cfg, num_classes, activated=True)
 
     return predict_step
 
@@ -95,9 +113,10 @@ def predictions_to_host(batch_preds: dict, tokens) -> dict:
     (labels are small integers, exact in f32)."""
     boxes = batch_preds["box3d_lidar"]
     d = boxes.shape[-1]
-    block = torch.cat([boxes.float(), batch_preds["scores"].float()[..., None],
-                       batch_preds["label_preds"].float()[..., None],
-                       batch_preds["valid"].float()[..., None]], dim=-1).cpu().numpy()
+    with span("predict.to_host"):
+        block = torch.cat([boxes.float(), batch_preds["scores"].float()[..., None],
+                           batch_preds["label_preds"].float()[..., None],
+                           batch_preds["valid"].float()[..., None]], dim=-1).cpu().numpy()
     out = {}
     for i, token in enumerate(tokens):
         rows = block[i][block[i, :, d + 2] > 0]

@@ -8,7 +8,8 @@ checkpoint per epoch (``torch.save`` of the state dicts under
 ``work_dir/checkpoints``) and, with ``val_ds``, AP/APH on a validation split; inference
 over a dataset (plain or double-flip) and its AP/APH; and tdal's profiler hooks, a
 ``torch.profiler`` trace of a window of train steps or inference batches written to
-``profile_dir`` as a Chrome trace.
+``profile_dir`` as a Chrome trace, with the program's spans in it (``runtime/tracing.py``)
+summarised in the log.
 
 With a data-parallel ``mesh`` (``tdal_torch.parallel.mesh``) every rank builds each
 global batch whole (the same shuffle and augmentation draws as one process) and trains
@@ -40,6 +41,7 @@ from tdal_torch.parallel.mesh import (
 from tdal_torch.pipeline.detector_engine import (
     make_detector_steps, make_predict_step, make_tta_predict_step, predictions_to_host,
 )
+from tdal_torch.runtime import tracing
 from tdal_torch.runtime.logging_utils import LogBuffer, MetricsWriter
 from tdal_torch.runtime.train_state import TrainState
 from tdal_torch.utils.detection_metrics import (
@@ -63,7 +65,8 @@ def _prefetch(iterator, depth: int = 2):
 
     threading.Thread(target=worker, daemon=True).start()
     while True:
-        ok, item = q.get()
+        with tracing.span("data.wait"), tracing.timed("data.wait"):
+            ok, item = q.get()
         if not ok:
             raise item
         if item is end:
@@ -73,7 +76,9 @@ def _prefetch(iterator, depth: int = 2):
 
 def detection_batches(dataset, batch_size, shuffle=False, seed=0):
     """Collated batches of ``dataset``, prepared on a thread ahead of the consumer; a
-    short last batch is padded with its last frame (``n_valid`` counts the real ones)."""
+    short last batch is padded with its last frame (``n_valid`` counts the real ones).
+    Each batch's build (its items and the collate) is ``timed`` as ``data.batch``, the
+    consumer's waits as ``data.wait``."""
     n = len(dataset)
     idx = np.arange(n)
     if shuffle:
@@ -83,7 +88,8 @@ def detection_batches(dataset, batch_size, shuffle=False, seed=0):
         for start in range(0, n, batch_size):
             sel = idx[start : start + batch_size]
             sel = np.concatenate([sel, np.full(batch_size - len(sel), sel[-1])])
-            batch = collate_detection([dataset[int(i)] for i in sel])
+            with tracing.timed("data.batch"):
+                batch = collate_detection([dataset[int(i)] for i in sel])
             batch["n_valid"] = min(batch_size, n - start)
             yield batch
 
@@ -112,6 +118,16 @@ def stop_trace(prof, profile_dir, name: str, device) -> Path:
     path.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(path))
     return path
+
+
+def log_trace(logger, path):
+    """Log the program's spans in the trace at ``path`` (``tracing.summarize``) and the
+    counts made while a profiler recorded."""
+    for line in tracing.summary_lines(tracing.summarize(path)):
+        logger.info(line)
+    traced = sorted((k[len("traced."):], v) for k, v in tracing.counters().items()
+                    if k.startswith("traced."))
+    logger.info("counted while traced: " + ", ".join(f"{k} {v}" for k, v in traced))
 
 
 def train_detector(state: TrainState, train_ds, code_weights, n_epoch: int,
@@ -150,6 +166,7 @@ def train_detector(state: TrainState, train_ds, code_weights, n_epoch: int,
             if prof is not None and i == prof_stop:
                 path = stop_trace(prof, profile_dir, "train", device)
                 logger.info(f"profiler trace (steps {prof_start}-{prof_stop}) -> {path}")
+                log_trace(logger, path)
                 prof = profile_dir = None
             if not main:
                 continue
@@ -224,6 +241,7 @@ def run_inference(state: TrainState, dataset, test_cfg: dict, batch_size: int, l
         if prof is not None and bi == prof_stop:
             path = stop_trace(prof, profile_dir, "inference", device)
             logger.info(f"profiler trace (middle batches) -> {path}")
+            log_trace(logger, path)
             prof = profile_dir = None
         if (bi + 1) % 20 == 0:
             logger.info(f"inference {bi + 1}/{n_batches}")

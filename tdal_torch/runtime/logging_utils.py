@@ -1,9 +1,9 @@
 """Logging, metric rows and seeding of the port's drivers and CLIs.
 
 Port of ``tdal/runtime/logging_utils.py``: ``create_logger``, ``fix_seed`` and the
-reference seed (tools/utils.py:24-44), ``LogBuffer`` (the trainers' windowed log lines),
-``Timer``, ``ProgressCounter`` and ``MetricsWriter`` (JSON rows, and TensorBoard scalars
-where ``tensorboardX`` is installed and asked for); and ``quiet_logger``.
+reference seed (tools/utils.py:24-44), ``LogBuffer`` (the trainers' windowed log lines)
+and ``MetricsWriter`` (JSON rows, and TensorBoard scalars where ``tensorboardX`` is
+installed and asked for); and ``quiet_logger``. Timing is ``runtime/tracing.py``'s.
 """
 
 from __future__ import annotations
@@ -12,7 +12,6 @@ import json
 import logging
 import random
 import sys
-import time
 from collections import OrderedDict
 from pathlib import Path
 
@@ -88,66 +87,6 @@ class LogBuffer:
             c = np.array(self.n_history[k][-n:] if n else self.n_history[k])
             self.output[k] = float((v * c).sum() / c.sum())
         self.ready = True
-
-
-class Timer:
-    """A running timer, also a context manager that prints its seconds on exit
-    (reference torchie/utils/timer.py:10-90)."""
-
-    def __init__(self, start: bool = True):
-        self._is_running = False
-        if start:
-            self.start()
-
-    @property
-    def is_running(self) -> bool:
-        return self._is_running
-
-    def start(self):
-        if not self._is_running:
-            self._t_start = time.time()
-            self._is_running = True
-        self._t_last = time.time()
-
-    def since_start(self) -> float:
-        self._t_last = time.time()
-        return self._t_last - self._t_start
-
-    def since_last_check(self) -> float:
-        dur = time.time() - self._t_last
-        self._t_last = time.time()
-        return dur
-
-    def __enter__(self):
-        self.start()
-        return self
-
-    def __exit__(self, *args):
-        print(f"{self.since_last_check():.3f}")
-        self._is_running = False
-
-
-class ProgressCounter:
-    """Text progress to a logger every ``every`` items and at the end: count, rate and
-    the seconds left (reference torchie/utils/progressbar.py)."""
-
-    def __init__(self, total: int, logger=None, every: int = 50, prefix: str = ""):
-        self.total = total
-        self.count = 0
-        self.every = every
-        self.logger = logger
-        self.prefix = prefix
-        self.timer = Timer()
-
-    def update(self, n: int = 1):
-        self.count += n
-        if self.logger is not None and (self.count % self.every == 0
-                                        or self.count == self.total):
-            elapsed = self.timer.since_start()
-            rate = self.count / max(elapsed, 1e-9)
-            eta = (self.total - self.count) / max(rate, 1e-9)
-            self.logger.info(f"{self.prefix}{self.count}/{self.total} "
-                             f"({rate:.1f}/s, eta {eta:.0f}s)")
 
 
 class MetricsWriter:

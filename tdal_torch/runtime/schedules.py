@@ -15,6 +15,8 @@ import math
 
 import torch
 
+from tdal_torch.runtime.tracing import span
+
 
 def labeler_step_decay(init_lr: float, steps_per_epoch: int, step_size: int = 20,
                        gamma: float = 0.7, eta_min: float = 1e-5):
@@ -141,7 +143,8 @@ class AdamWSchedule(torch.optim.Optimizer):
     by max_norm / norm when their global norm is at least ``grad_clip``; then
     m = b1 m + (1 - b1) g, v = b2 v + (1 - b2) g^2, u = m / (1 - b1^(n+1)) /
     (sqrt(v / (1 - b2^(n+1))) + eps) + weight_decay * p (decoupled, every parameter),
-    and p -= lr u, with lr and b1 the schedules evaluated at n."""
+    and p -= lr u, with lr and b1 the schedules evaluated at n. The clip and the update
+    are the spans ``optimizer.clip`` and ``optimizer.update``."""
 
     def __init__(self, params, lr_schedule, weight_decay: float = 0.0,
                  grad_clip: float | None = None, momentum_schedule=None, b1: float = 0.9,
@@ -157,26 +160,28 @@ class AdamWSchedule(torch.optim.Optimizer):
                   for g in self.param_groups]
         grads = {p: p.grad for _, ps in groups for p in ps}
         if self.grad_clip is not None:
-            norm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads.values()))
-            clip = norm >= self.grad_clip
-            grads = {p: torch.where(clip, g / norm * self.grad_clip, g)
-                     for p, g in grads.items()}
+            with span("optimizer.clip"):
+                norm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads.values()))
+                clip = norm >= self.grad_clip
+                grads = {p: torch.where(clip, g / norm * self.grad_clip, g)
+                         for p, g in grads.items()}
         n = self.count
         lr = float(self.lr_schedule(n))
         b1 = float(self.momentum_schedule(n)) if self.momentum_schedule else self.b1
-        for group, ps in groups:
-            b2, eps, wd = group["b2"], group["eps"], group["weight_decay"]
-            for p in ps:
-                g = grads[p]
-                st = self.state[p]
-                if not st:
-                    st["m"] = torch.zeros_like(p)
-                    st["v"] = torch.zeros_like(p)
-                m, v = st["m"], st["v"]
-                m.mul_(b1).add_(g * (1 - b1))
-                v.mul_(b2).add_(g * g * (1 - b2))
-                u = (m / (1 - b1 ** (n + 1))) / (torch.sqrt(v / (1 - b2 ** (n + 1))) + eps)
-                p.sub_(lr * (u + wd * p))
+        with span("optimizer.update"):
+            for group, ps in groups:
+                b2, eps, wd = group["b2"], group["eps"], group["weight_decay"]
+                for p in ps:
+                    g = grads[p]
+                    st = self.state[p]
+                    if not st:
+                        st["m"] = torch.zeros_like(p)
+                        st["v"] = torch.zeros_like(p)
+                    m, v = st["m"], st["v"]
+                    m.mul_(b1).add_(g * (1 - b1))
+                    v.mul_(b2).add_(g * g * (1 - b2))
+                    u = (m / (1 - b1 ** (n + 1))) / (torch.sqrt(v / (1 - b2 ** (n + 1))) + eps)
+                    p.sub_(lr * (u + wd * p))
         self.count += 1
         return None
 

@@ -18,6 +18,7 @@ import torch
 from torch import nn
 
 from tdal_torch.parallel.mesh import active, all_reduce_grads
+from tdal_torch.runtime.tracing import span
 
 
 @dataclasses.dataclass
@@ -29,8 +30,9 @@ class TrainState:
     def apply_gradients(self):
         mesh = active()
         if mesh is not None:
-            all_reduce_grads([p for g in self.optimizer.param_groups for p in g["params"]],
-                             mesh)
+            with span("dp.all_reduce_grads"):
+                all_reduce_grads([p for g in self.optimizer.param_groups for p in g["params"]],
+                                 mesh)
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         self.step += 1

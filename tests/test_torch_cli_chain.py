@@ -235,7 +235,8 @@ def test_static_train_cli_trains_data_parallel_under_torchrun(segment, tmp_path)
 
 def test_detector_clis_write_profiler_traces(tmp_path):
     """``train --profile_dir`` and ``dist_test --profile_dir`` on the CPU each write a
-    Chrome trace of their step window (tdal's profiler hooks, through torch.profiler)."""
+    Chrome trace of their step window (tdal's profiler hooks, through torch.profiler),
+    with the program's spans in it (``tdal_torch.runtime.tracing``)."""
     infos, _ = make_synthetic_dataset(tmp_path / "data", n_scenes=1, n_frames=4, seed=3,
                                       n_static=2, n_dynamic=1, points_per_object=64,
                                       n_background=256)
@@ -247,9 +248,12 @@ def test_detector_clis_write_profiler_traces(tmp_path):
     _run_port("dist_test", [cfg, "--work_dir", work / "test", "--checkpoint", work / "checkpoints",
                             "--info_path", info_path, "--batch_size", 2, "--profile_dir", prof,
                             *CPU])
-    for name in ("train", "inference"):
+    spans = {"train": {"train.step", "train.forward", "train.optimizer"},
+             "inference": {"predict.step", "predict.nms", "predict.to_host"}}
+    for name, want in spans.items():
         trace = json.loads((prof / f"{name}.trace.json").read_text())
-        assert trace["traceEvents"], name
+        names = {e.get("name") for e in trace["traceEvents"] if e.get("cat") == "user_annotation"}
+        assert want <= names, (name, want - names)
 
 
 def _messages(log_file):

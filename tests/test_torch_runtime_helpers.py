@@ -1,15 +1,13 @@
 """The port's geometry helpers (``tdal_torch.core.geometry``: the twelve functions of
 ``tdal/core/geometry.py`` it gained) and logging helpers
-(``tdal_torch.runtime.logging_utils``: ``LogBuffer``, ``Timer``, ``ProgressCounter``,
-``MetricsWriter``) against tdal's on the same seeded inputs.
+(``tdal_torch.runtime.logging_utils``: ``LogBuffer``, ``MetricsWriter``) against tdal's
+on the same seeded inputs.
 
 Geometry tolerance: f32 inputs; trigonometry and matrix products of jnp and torch may
 round differently, so floats are held to 2e-6 of max(1, |tdal|) elementwise (a few f32
 ulps at the inputs' magnitudes, up to 40 m); masks and counts must be equal."""
 
 import json
-import logging
-import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -122,31 +120,6 @@ def test_log_buffer_matches_tdal():
         buf.clear()
         assert not buf.ready and not buf.val_history
     assert outputs[0] == outputs[1] and len(outputs[0]) == 5
-
-
-def test_timer_and_progress_counter_match_tdal(capsys):
-    """Timer's running and checkpoint times and its printed seconds; the progress lines
-    of the same updates (their rates and times masked)."""
-    for mod in (TL, JL):
-        t = mod.Timer(start=False)
-        assert not t.is_running
-        with t:
-            assert t.is_running
-            assert t.since_start() >= 0 and t.since_last_check() >= 0
-        assert not t.is_running
-    printed = capsys.readouterr().out.split()
-    assert len(printed) == 2 and all(re.fullmatch(r"\d+\.\d{3}", p) for p in printed)
-    lines = []
-    for mod in (TL, JL):
-        log = logging.Logger(f"progress.{mod.__name__}")
-        records = []
-        log.addHandler(type("H", (logging.Handler,), {
-            "emit": lambda self, r: records.append(r.getMessage())})())
-        pc = mod.ProgressCounter(7, logger=log, every=3, prefix="frames ")
-        for _ in range(7):
-            pc.update()
-        lines.append([re.sub(r"\(.*\)", "(...)", m) for m in records])
-    assert lines[0] == lines[1] == ["frames 3/7 (...)", "frames 6/7 (...)", "frames 7/7 (...)"]
 
 
 @pytest.mark.parametrize("tensorboard", [False, True], ids=["jsonl", "tensorboard"])
