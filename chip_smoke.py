@@ -123,7 +123,10 @@ nothing of JAX or of ``tdal``, and exits non-zero on any failure. Phases:
    with the unbiased running variance (printed). (b) ``run_inference`` at the test
    settings (400000 voxels, NMS pre 4096 / post 500 at IoU 0.7, score 0.1) with (a)'s
    weights over 12 synthetic frames: frames/s, forward and decode + NMS times, peak
-   memory, and two frames held against a CPU copy as phase 7 holds its batch. (c) The
+   memory, and two frames held against a CPU copy as phase 7 holds its batch; then the
+   sparse gather-GEMM kernel at the backbone's shapes (``sparse_kernel_check``: the 21
+   contractions of one batch's forward, each timed beside its least time and its twin
+   and held against the twin within 1e-5). (c) The
    frozen-first-stage two-stage config (first stage bf16 from (a)'s snapshot, RoIHead
    512 x 5 inputs, 128 RoIs an image), all under ``deterministic``, so that its check
    repeats: ``train_two_stage`` for an epoch, the step
@@ -213,9 +216,11 @@ nothing of JAX or of ``tdal``, and exits non-zero on any failure. Phases:
    ms a batch and frames/s beside one card's; otherwise the line ``one card: (c) not
    run``. Then the checks of phases 6, 9 and 12 are judged on the CPU lane's
    references;
-15. one line ``{"kernels": [...]}`` (K1, K2, K3, K4, K5/K6, K7, and K4 again as the
-   benchmark prototype's function), each kernel's ``launches`` from phases 8, 9, 10(b),
-   11, 12 and 14 (b), the conv kernels' halo forms' times from phase 5;
+15. one line ``{"kernels": [...]}`` (K1, K2, K3, K4, K5/K6, K7, K4 again as the
+   benchmark prototype's function, and the sparse gather-GEMM kernel), each kernel's
+   ``launches`` from phases 8, 9, 10(b), 11, 12 and 14 (b) (the sparse kernel's from 9
+   (a), (b), (c) and 12, each path's counted across it), the conv kernels' halo forms'
+   times from phase 5, the sparse kernel's times from phase 9 (b)'s section;
 16. the last line ``{"ok": true, "device": {...}}``. The seconds each phase took, and
    the whole script's, are printed before the ``kernels`` line, beside those recorded
    from a run without the CPU lane.
@@ -2538,11 +2543,16 @@ VN_MIN_POINTS, VN_MIN_VOXELS = 150000, 100000  # each training frame holds at le
 VN_SITES, VN_CHAINED = 13, 10
 VN_LAUNCHES = {"conv3x3_fwd_stats": VN_SITES, "conv3x3_fwd": VN_SITES - VN_CHAINED,
                "conv3x3_dgrad_act": VN_CHAINED, "conv3x3_wgrad": VN_SITES}
-# the profiled step's device time by kernel name, first match first: the conv kernels
-# K3-K7, the sparse backbone's matmuls (cuBLAS's GEMMs, the only ones of the step),
-# cuDNN's convs, the sparse backbone's gathers (index_select) and its sort / search /
-# scan kernels
+# the profiled step's device time by kernel name, first match first: the sparse
+# backbone's gather-GEMM kernel (its forward and dgrad), the conv kernels K3-K7, the
+# sparse backbone's matmuls (cuBLAS's GEMMs of its d W, the only ones of the step),
+# cuDNN's convs, the sparse backbone's gathers (index_select: its d W's) and its sort /
+# search / scan kernels
+# the sparse gather-GEMM kernel's launches: an eval forward makes one a sparse conv; a
+# train step adds the dgrads but the input conv's (its features need no gradient)
+VN_SPARSE_FORWARD, VN_SPARSE_STEP = 21, 41
 VN_CATEGORIES = (
+    ("sparse: gather-GEMM kernel", ("sparse_conv_kernel",)),
     ("conv kernels K3-K7", CONV_KERNEL_NAMES),
     ("sparse: matmuls", ("cublas", "sgemm")),
     ("cuDNN convs", ("conv", "fprop", "dgrad", "wgrad", "cudnn", "xmma_", "implicit")),
@@ -2592,6 +2602,22 @@ def device_time_by_category(step, state, batch) -> dict:
                 top=[(k[:120], v) for k, v in top])
 
 
+def sparse_launches() -> int:
+    """The sparse gather-GEMM kernel's launches so far (``tracing``'s
+    ``sparse_conv.launches``); a path's count is the difference across it."""
+    from tdal_torch.runtime import tracing
+
+    return tracing.counters().get("sparse_conv.launches", 0)
+
+
+def expect_sparse_launches(path: str, n: int, per: int, times: int):
+    """``path`` made ``n`` sparse kernel launches: ``per`` each of ``times`` runs."""
+    log(f"  sparse gather-GEMM launches, {path}: {n} ({per} each of {times})")
+    if n != per * times:
+        raise AssertionError(f"{path}: {n} sparse kernel launches, expected {per} each of "
+                             f"{times}")
+
+
 @contextlib.contextmanager
 def subm_backward_drops_a_tap(tap: int = 4):
     """A wrong backward for a control: every submanifold conv's d feats leaves out one
@@ -2604,11 +2630,12 @@ def subm_backward_drops_a_tap(tap: int = 4):
     def backward(ctx, g):
         if not ctx.subm:
             return original.__func__(ctx, g)
-        feats, weights, fwd, _ = ctx.saved_tensors
+        feats, weights, fwd, _, n_in = ctx.saved_tensors
         w = weights.flip(0).transpose(1, 2).clone()
         w[tap] = 0
-        return (sc._pertap(g, fwd, w).to(feats.dtype),
-                sc._wgrad(feats, fwd, g).to(weights.dtype), None, None)
+        dfeats = (sc._contract(g, fwd, w, n_in).to(feats.dtype)
+                  if ctx.needs_input_grad[0] else None)
+        return (dfeats, sc._wgrad(feats, fwd, g).to(weights.dtype), None, None, None, None)
 
     fn.backward = staticmethod(backward)
     try:
@@ -2741,8 +2768,10 @@ def phase_voxelnet_train(device, root: Path) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     for k in cv.launches:
         cv.launches[k] = 0
+    s0 = sparse_launches()
     timed_s, rows = run("timed", VN_TIMED_EPOCHS)
     launches = dict(cv.launches)
+    sparse = sparse_launches() - s0
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     losses = [r["loss"] for r in warm_rows + rows]
     log(f"  losses {losses}")
@@ -2754,6 +2783,7 @@ def phase_voxelnet_train(device, root: Path) -> tuple:
         if n != VN_TIMED * VN_LAUNCHES[name]:
             raise AssertionError(f"{name}: {n} launches in {VN_TIMED} steps, expected "
                                  f"{VN_LAUNCHES[name]} per step")
+    expect_sparse_launches("phase 9 (a) timed steps", sparse, VN_SPARSE_STEP, VN_TIMED)
     step = make_detector_steps(model, head["code_weights"], head["weight"])
     step_s = []
     for _ in range(3):
@@ -2802,8 +2832,8 @@ def phase_voxelnet_train(device, root: Path) -> tuple:
          "unbiased running variance": (model, unbiased_running_variance,
                                        "stat_err_over_tol")},
         stat_noise=True, name="phase 9 (a)'s card-vs-CPU step")
-    out = dict(launches=launches, launches_per_step=VN_LAUNCHES, losses=losses,
-               step_ms=step_ms, step_s=step_s, timed_s=timed_s, frames_per_s=frames_per_s,
+    out = dict(launches=launches, launches_per_step=VN_LAUNCHES, sparse_launches=sparse,
+               losses=losses, step_ms=step_ms, step_s=step_s, timed_s=timed_s, frames_per_s=frames_per_s,
                backbone_ms=backbone_ms, peak_gib=peak_gib, occupancy=occupancy,
                points_per_frame=n_points, profiled_step=profiled,
                check_batch=VN_CHECK_BATCH, check=check)
@@ -2835,10 +2865,12 @@ def phase_voxelnet_infer(device, cfg, trained, root: Path) -> dict:
                               voxel_cfg, mode="test", max_points=cfg.data["val"]["max_points"])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        s0 = sparse_launches()
         t0 = time.perf_counter()
         dets = run_inference(TrainState(model, None), ds, test_cfg, INFER_BATCH, logger,
                              speed_test=True)
         total = time.perf_counter() - t0
+        sparse = sparse_launches() - s0
         s_per_frame = timing.records.pop().args[0]
     finally:
         logger.removeHandler(timing)
@@ -2847,8 +2879,10 @@ def phase_voxelnet_infer(device, cfg, trained, root: Path) -> dict:
                                        and d["box3d_lidar"].shape[1] == 7
                                        for d in dets.values()):
         raise AssertionError("detections missing, not finite or not 7 wide")
+    expect_sparse_launches("phase 9 (b) run_inference", sparse, VN_SPARSE_FORWARD,
+                           -(-len(ds) // INFER_BATCH))
     out = dict(frames_per_s=1.0 / s_per_frame, s_per_frame=s_per_frame, total_s=total,
-               kept_per_frame=float(np.mean(kept)),
+               kept_per_frame=float(np.mean(kept)), sparse_launches=sparse,
                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     points = torch.as_tensor(np.stack([ds[i]["points"] for i in range(INFER_BATCH)]),
                              device=device)
@@ -2875,7 +2909,90 @@ def phase_voxelnet_infer(device, cfg, trained, root: Path) -> dict:
     log(f"  test voxels by backbone level (the last batch), against caps:")
     out["occupancy"] = occupancy_report(model)
     out["cpu_check"] = check_infer_against_cpu(model, points[:VN_CHECK_BATCH], test_cfg)
+    out["sparse_kernel"] = sparse_kernel_check(model, points)
     return out
+
+
+# the 21 sparse convs of an eval forward of the VoxelNet backbone, in order
+VN_SPARSE_CONVS = (["in L0"] + ["subm L0"] * 4 + ["down L1"] + ["subm L1"] * 4 + ["down L2"]
+                   + ["subm L2"] * 4 + ["down L3"] + ["subm L3"] * 4 + ["z L4"])
+SPARSE_TOL = 1e-5  # kernel against twin, f32: the same products summed in another order
+SPARSE_SOURCE = "tdal_torch/ops/csrc/sparse_conv.cu"
+SPARSE_REPLACES = ("no TPU kernel: tdal/ops/sparse_conv.py leaves the contraction to XLA; "
+                   "the port's per-tap index_select + addmm path (now its CPU twin)")
+F32_FFMA_FLOPS = 67e12  # an H100 SXM's f32 rate outside the tensor cores (data sheet)
+
+
+def sparse_kernel_check(model, points) -> dict:
+    """The sparse gather-GEMM kernel at the backbone's own shapes: one eval forward of
+    ``points`` captures its 21 forward contractions (features, table, weights, occupied
+    counts); each is then timed (the kernel alone, back to back, and its plain twin,
+    the per-tap path) beside its least time as the benchmark's ``sparse_conv_roofline``
+    counts it (2 Cin Cout FLOP a real pair against 495 TFLOP/s, the rows it reads and
+    writes and its weights once against 3.35 TB/s) and the f32 FFMA time of its real
+    pairs (67 TFLOP/s), and held against the twin: 1e-5 of max(1, |twin|)."""
+    from tdal_torch.ops import build
+    from tdal_torch.ops import sparse_conv as sc
+
+    calls, real = [], sc.gather_gemm
+
+    def capture(feats, table, weights, counts):
+        calls.append((feats, table, weights, counts))
+        return real(feats, table, weights, counts)
+
+    sc.gather_gemm = capture
+    try:
+        with torch.no_grad():
+            model(points)
+    finally:
+        sc.gather_gemm = real
+    if len(calls) != len(VN_SPARSE_CONVS):
+        raise AssertionError(f"{len(calls)} sparse convs in a forward, expected "
+                             f"{len(VN_SPARSE_CONVS)}")
+    lib = build.kernels()
+    rows, failed = [], []
+    log(f"  the sparse gather-GEMM kernel at the backbone's shapes (batch {points.shape[0]}; "
+        f"ms: kernel, least, f32 FFMA time of the real pairs, twin):")
+    for name, (x, table, w, counts) in zip(VN_SPARSE_CONVS, calls):
+        (n_in, cin), (taps, n_out), cout = x.shape, table.shape, w.shape[2]
+        w = w.detach()
+        wk = w.to(x.dtype).float().contiguous()
+        out = torch.empty(n_out, cout, dtype=x.dtype, device=x.device)
+        rows_tile = sc.tile_rows(cout)
+        ms = time_back_to_back(lambda: lib.sparse_conv(x, table, wk, counts, out))
+        twin_ms = time_ms(lambda: sc._pertap(x, table, w), reps=5, warm=1)
+        abs_err, err = rel_err(real(x, table, w, counts).float(),
+                               sc._pertap(x, table, w).float())
+        hit = table != n_in
+        pairs = int(hit.sum())
+        flop = 2.0 * pairs * cin * cout
+        nbytes = 4.0 * (int(torch.unique(table[hit]).numel()) * cin + int(counts.sum()) * cout
+                        + taps * cin * cout)
+        least_ms = 1e3 * max(flop / 495e12, nbytes / 3.35e12)
+        tiles = taps * -(-n_out // rows_tile)
+        load = 100.0 * int(sc.tile_taps_loaded(hit.t()[None], rows_tile)) / tiles
+        r = dict(conv=name, rows=n_out, occupied=int(counts.sum()), cin=cin, cout=cout,
+                 taps=taps, pairs=pairs, flop=flop, bytes=nbytes, kernel_ms=ms,
+                 least_ms=least_ms, ffma_ms=1e3 * flop / F32_FFMA_FLOPS, twin_ms=twin_ms,
+                 fill=100.0 * pairs / hit.numel(), tile_load=load, abs_err=abs_err,
+                 rel_err=err)
+        rows.append(r)
+        log(f"    {name}: {n_out} rows, {r['occupied']} occupied, {cin}->{cout} x {taps}, "
+            f"{pairs} pairs (fill {r['fill']:.2f}%, tile load {load:.2f}%): {ms:.3f} ms, "
+            f"least {least_ms:.4f}, FFMA {r['ffma_ms']:.3f}, twin {twin_ms:.2f}; "
+            f"rel err {err:.2e}")
+        if not err <= SPARSE_TOL:
+            failed.append(name)
+        del out
+    total = {k: sum(r[k] for r in rows) for k in ("kernel_ms", "least_ms", "ffma_ms",
+                                                  "twin_ms")}
+    log(f"  sparse convs of a forward: kernel {total['kernel_ms']:.2f} ms, least "
+        f"{total['least_ms']:.3f} ms ({100 * total['least_ms'] / total['kernel_ms']:.2f}% of "
+        f"the kernel's), FFMA {total['ffma_ms']:.2f} ms, twin {total['twin_ms']:.1f} ms")
+    if failed:
+        raise AssertionError(f"the sparse kernel against its twin, past {SPARSE_TOL}: {failed}")
+    return dict(convs=rows, max_abs_err=max(r["abs_err"] for r in rows),
+                max_rel_err=max(r["rel_err"] for r in rows), **total)
 
 
 # the RoI head step, card against CPU: the loss and the gradients (f32 matmuls over
@@ -2883,17 +3000,40 @@ def phase_voxelnet_infer(device, cfg, trained, root: Path) -> dict:
 # largest; the running statistics 1e-5 (f32 sums over 512 rows: about 1e-7 on an
 # H100), which the unbiased variance (512 / 511, momentum 0.1: 1e-4 to 4e-4) fails
 ROI_TOL = {"loss_rel_err": 1e-4, "grad_rel_err": 1e-4, "stat_rel_err": 1e-5}
+# a ReLU whose input the card and the CPU see on either side of 0 is a knife edge only
+# within ROI_KNIFE of 0, and only while they are at most ROI_KNIFE_SHARE of the head's
+# ReLU units (6 layers of 256 over the step's 512 RoIs: 786432): its input is a BatchNorm
+# output (unit scale) of f32 sums over up to 2560 products, which the two devices round
+# about 1e-6 apart. Read on an H100 80GB HBM3 with the sparse gather-GEMM kernel in the
+# first stage: 22 units (2.8e-5 of them), the farthest 1.6e-7 from 0
+ROI_KNIFE, ROI_KNIFE_SHARE = 1e-6, 1e-3
 
 
-def roi_step(engine, rois, labels, scores, feats, gt, draws, device):
+def roi_step(engine, rois, labels, scores, feats, gt, draws, device, relu_masks=None):
     """One RoI head step on ``device`` from the first stage's outputs: (loss, the RoI
-    head's gradients, its state after the update) in float64 on the CPU."""
+    head's gradients, its state after the update, each Linear + BatchNorm + ReLU layer's
+    ReLU input) in float64 on the CPU. With ``relu_masks`` (a bool tensor a layer, in
+    that order) each of those ReLUs passes exactly where its mask says: another
+    device's pattern."""
     from tdal_torch.models.two_stage import proposal_targets, roi_losses
     from tdal_torch.runtime.schedules import adam_with_schedule
 
     head = copy.deepcopy(engine.roi_head).to(device).train()
     opt = adam_with_schedule(head.parameters(), lambda n: 1e-3, 0.01, 35.0)
     mv = lambda t: t.to(device)  # noqa: E731
+    layers = [layer for group in (head.shared, head.cls_layers, head.reg_layers)
+              for layer in group]
+    pre = [None] * len(layers)
+    for i, layer in enumerate(layers):
+        def keep(_, __, out, i=i):
+            pre[i] = out
+
+        def relu(_, __, out, i=i):
+            return pre[i] * mv(relu_masks[i]).to(pre[i].dtype)
+
+        layer.bn.register_forward_hook(keep)
+        if relu_masks is not None:
+            layer.register_forward_hook(relu)
     targets = proposal_targets(mv(draws["proposal"]), mv(rois), mv(scores), mv(labels),
                                mv(feats), mv(gt), engine.roi_cfg)
     cls, reg = head(targets["roi_features"], dropout=[mv(m) for m in draws["dropout"]])
@@ -2903,7 +3043,8 @@ def roi_step(engine, rois, labels, scores, feats, gt, draws, device):
     grads = {k: p.grad.detach().cpu().double() for k, p in head.named_parameters()}
     opt.step()
     return (float(total.detach()), grads,
-            {k: v.detach().cpu().double() for k, v in head.state_dict().items()})
+            {k: v.detach().cpu().double() for k, v in head.state_dict().items()},
+            [p.detach().cpu().double() for p in pre])
 
 
 def phase_two_stage(device, trained, ds_train, root: Path) -> dict:
@@ -2945,10 +3086,14 @@ def phase_two_stage(device, trained, ds_train, root: Path) -> dict:
         first_before = {k: v.clone() for k, v in engine.first.state_dict().items()}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        s0 = sparse_launches()
         t0 = time.perf_counter()
         train_two_stage(state, ds_train, 1, VN_BATCH, logger, root / "two_stage", log_every=1)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
+        sparse = sparse_launches() - s0
+        expect_sparse_launches("phase 9 (c) train_two_stage, the frozen first stage", sparse,
+                               VN_SPARSE_FORWARD, len(ds_train) // VN_BATCH)
         batch = collate_detection([ds_train[i] for i in range(VN_BATCH)])
         train_step, predict_step = make_two_stage_steps(engine)
         gen = torch.Generator().manual_seed(0)
@@ -2974,7 +3119,8 @@ def phase_two_stage(device, trained, ds_train, root: Path) -> dict:
             pred_s.append(time.perf_counter() - t0)
         if not (torch.isfinite(preds["box3d_lidar"]).all() and preds["valid"].any()):
             raise AssertionError("two-stage predictions not finite or empty")
-        out = dict(train_s=train_s, step_ms=1e3 * statistics.median(step_s), peak_gib=peak_gib,
+        out = dict(train_s=train_s, sparse_launches=sparse,
+                   step_ms=1e3 * statistics.median(step_s), peak_gib=peak_gib,
                    loss=float(logs["loss"]), first_stage_unchanged=True,
                    predict_frames_per_s=VN_BATCH / statistics.median(pred_s[1:]),
                    kept=int(preds["valid"].sum()))
@@ -2994,23 +3140,46 @@ def phase_two_stage(device, trained, ds_train, root: Path) -> dict:
         first_out[1] = labels.cpu()
         card = roi_step(engine, *first_out, draws, device)
         cpu = roi_step(engine, *first_out, draws, torch.device("cpu"))
+        # knife edges: ReLUs that the two devices decide apart on inputs within ROI_KNIFE
+        # of 0; the CPU copy then takes the card's decisions there
+        masks = [p > 0 for p in card[3]]
+        flips = [(c > 0) != m for c, m in zip(cpu[3], masks)]
+        knife = dict(units=sum(int(f.sum()) for f in flips),
+                     of_units=sum(m.numel() for m in masks),
+                     largest=max((float(c[f].abs().max()) for c, f in zip(cpu[3], flips)
+                                  if f.any()), default=0.0))
+        if knife["units"]:
+            own = cpu
+            cpu = roi_step(engine, *first_out, draws, torch.device("cpu"), relu_masks=masks)
         with unbiased_running_variance():
             control = roi_step(engine, *first_out, draws, device)
 
-    def errors(a):
-        g = max(float((a[1][k] - cpu[1][k]).abs().max()) / max(1e-12, float(cpu[1][k].abs().max()))
-                for k in cpu[1])
-        st = max(float((a[2][k] - cpu[2][k]).abs().max() / cpu[2][k].abs().max().clamp_min(1e-6))
-                 for k in cpu[2] if "running" in k)
-        return dict(loss_rel_err=abs(a[0] - cpu[0]) / abs(cpu[0]), grad_rel_err=g,
+    def errors(a, ref=cpu):
+        g = max(float((a[1][k] - ref[1][k]).abs().max()) / max(1e-12, float(ref[1][k].abs().max()))
+                for k in ref[1])
+        st = max(float((a[2][k] - ref[2][k]).abs().max() / ref[2][k].abs().max().clamp_min(1e-6))
+                 for k in ref[2] if "running" in k)
+        return dict(loss_rel_err=abs(a[0] - ref[0]) / abs(ref[0]), grad_rel_err=g,
                     stat_rel_err=st)
 
     out["roi_check"], out["roi_control_unbiased"] = errors(card), errors(control)
+    out["roi_knife_edges"] = knife
     out["nondeterministic_ops"] = named
     log(f"  one RoI head step on the card against a CPU copy (same RoIs, features, draws "
         f"and dropout masks): {out['roi_check']} (tol: {ROI_TOL}); control with the "
         f"unbiased running variance: {out['roi_control_unbiased']}; (c) ran under "
         f"deterministic algorithms, ops without a deterministic version: {named or 'none'}")
+    log(f"  ReLUs decided apart by the card and the CPU: {knife['units']} of "
+        f"{knife['of_units']}, inputs within {knife['largest']:.3e} of 0 (knife edges: "
+        f"within {ROI_KNIFE} of 0, at most {ROI_KNIFE_SHARE} of the units; the CPU copy "
+        f"then takes the card's decisions)" + (f"; with its own: {errors(card, own)}"
+                                               if knife["units"] else ""))
+    if knife["largest"] > ROI_KNIFE:
+        raise AssertionError(f"a ReLU of the RoI head decided apart {knife['largest']:.3e} "
+                             f"from 0 on the card and the CPU")
+    if knife["units"] > ROI_KNIFE_SHARE * knife["of_units"]:
+        raise AssertionError(f"{knife['units']} of {knife['of_units']} ReLUs of the RoI head "
+                             f"decided apart on the card and the CPU")
     if not all(out["roi_check"][k] <= tol for k, tol in ROI_TOL.items()):
         raise AssertionError(f"the RoI head step differs from the CPU's: {out['roi_check']}")
     if not out["roi_control_unbiased"]["stat_rel_err"] > ROI_TOL["stat_rel_err"]:
@@ -3822,8 +3991,10 @@ def phase_dcn(device) -> dict:
         reset_peak()
         for k in cv.launches:
             cv.launches[k] = 0
+        s0 = sparse_launches()
         timed_s, rows = run("timed", DCN_TIMED_EPOCHS)
         launches = dict(cv.launches)
+        sparse = sparse_launches() - s0
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         losses = [r["loss"] for r in warm_rows + rows]
         log(f"  losses {losses}")
@@ -3835,6 +4006,7 @@ def phase_dcn(device) -> dict:
             if n != DCN_TIMED * DCN_LAUNCHES[name]:
                 raise AssertionError(f"{name}: {n} launches in {DCN_TIMED} steps, expected "
                                      f"{DCN_LAUNCHES[name]} per step")
+        expect_sparse_launches("phase 12 timed steps", sparse, VN_SPARSE_STEP, DCN_TIMED)
         step = make_detector_steps(model, head_cfg["code_weights"], head_cfg["weight"])
         step_s = []
         for _ in range(3):
@@ -3853,7 +4025,8 @@ def phase_dcn(device) -> dict:
             f"{head['input_shape']} {head['input_dtype']} output, {head['ms']:.1f} ms "
             f"({100 * head['ms'] / step_ms:.1f}% of the step), its peak {head['peak_gib']:.3f} "
             f"GiB above what was held; peak memory of the timed steps {peak_gib:.2f} GiB")
-        out["train"] = dict(launches=launches, launches_per_step=DCN_LAUNCHES, losses=losses,
+        out["train"] = dict(launches=launches, launches_per_step=DCN_LAUNCHES,
+                            sparse_launches=sparse, losses=losses,
                             step_ms=step_ms, step_s=step_s, timed_s=timed_s,
                             frames_per_s=frames_per_s, peak_gib=peak_gib, head=head,
                             warm_s=warm_s, points_per_frame=n_points,
@@ -4758,6 +4931,24 @@ def whole_run(device, kind, smi, seconds, lap, t_script, fp) -> int:
             shape=f"{case}: B=4 468x468 64->64",
             halo_form=None if proto else dict(chalo[name], halo=[1, 1]), **extra,
         ))
+    sk = voxelnet["infer"]["sparse_kernel"]
+    sparse_by_path = {
+        "phase 9 (a) VoxelNet timed steps": voxelnet["train"]["sparse_launches"],
+        "phase 9 (b) run_inference": voxelnet["infer"]["sparse_launches"],
+        "phase 9 (c) train_two_stage, the frozen first stage":
+            voxelnet["two_stage"]["sparse_launches"],
+        "phase 12 dcn VoxelNet steps": dcn["train"]["sparse_launches"]}
+    entries.append(dict(
+        name="sparse_conv", route="cuda", source=SPARSE_SOURCE, replaces=SPARSE_REPLACES,
+        launches=sum(sparse_by_path.values()), launches_by_path=sparse_by_path,
+        max_abs_err=sk["max_abs_err"], max_rel_err=sk["max_rel_err"], tol=SPARSE_TOL,
+        ms=sk["kernel_ms"], plain_ms=sk["twin_ms"], bound_ms=sk["least_ms"],
+        bound_by="each conv's real pairs' FLOP at the TF32 peak or its live rows' and "
+                 "weights' bytes at 3.35 TB/s, the larger",
+        ffma_ms=sk["ffma_ms"], library_ms=None,
+        shape=f"the {len(VN_SPARSE_CONVS)} sparse convs of one eval forward of phase 9 (b)'s "
+              f"batch of {INFER_BATCH} test frames (400000 voxels a frame at level 0), f32",
+    ))
     # derived, not traced: phase 5's f32 kernel times at each conv site of the step
     kernel_ms = 0.0
     for shape, act, n in PP_SITE_CASES:

@@ -82,29 +82,31 @@ class SparseMiddleBackbone(nn.Module):
         def bn_relu(x, valid):
             return torch.relu(next(norms)(x, valid.to(x.dtype))) * valid[..., None]
 
+        # each level's voxels sort first: the occupied count is each conv's ``rows``
         coords, feats, valid, keys = sort_voxels(coords, feats, valid, grid)
         self.occupancy = [(valid.sum(1), v)]
-        nbrs = subm_neighbors(coords, valid, keys, grid)
-        x = bn_relu(subm_conv3d(coords, feats, valid, keys, grid, self.w_in, neighbors=nbrs),
-                    valid)
+        nbrs, rows = subm_neighbors(coords, valid, keys, grid), self.occupancy[-1][0]
+        x = bn_relu(subm_conv3d(coords, feats, valid, keys, grid, self.w_in, neighbors=nbrs,
+                                rows=rows), valid)
         for i in range(len(chans)):
             for j in range(self.blocks_per_stage):
                 wa, wb = getattr(self, f"w_blk{i}_{j}_a"), getattr(self, f"w_blk{i}_{j}_b")
-                y = bn_relu(subm_conv3d(coords, x, valid, keys, grid, wa, neighbors=nbrs), valid)
-                y = subm_conv3d(coords, y, valid, keys, grid, wb, neighbors=nbrs)
+                y = bn_relu(subm_conv3d(coords, x, valid, keys, grid, wa, neighbors=nbrs,
+                                        rows=rows), valid)
+                y = subm_conv3d(coords, y, valid, keys, grid, wb, neighbors=nbrs, rows=rows)
                 y = next(norms)(y, valid.to(y.dtype))
                 x = torch.relu(y + x) * valid[..., None]
             if i + 1 < len(chans):
                 cap = int(caps[i + 1]) if i + 1 < len(caps) else v
                 coords, x, valid, keys = sparse_conv3d_down2(
-                    coords, x, valid, keys, grid, getattr(self, f"w_down{i}"), cap)
+                    coords, x, valid, keys, grid, getattr(self, f"w_down{i}"), cap, rows=rows)
                 self.occupancy.append((valid.sum(1), cap))
                 grid = down2_grid(grid)
-                nbrs = subm_neighbors(coords, valid, keys, grid)
+                nbrs, rows = subm_neighbors(coords, valid, keys, grid), self.occupancy[-1][0]
                 x = bn_relu(x, valid)
         cap = int(caps[-1]) if len(caps) >= len(chans) else v
         coords, x, valid, keys = sparse_conv3d_downz(coords, x, valid, keys, grid, self.w_z,
-                                                     cap)
+                                                     cap, rows=rows)
         self.occupancy.append((valid.sum(1), cap))
         if recording():
             for i, (n, _) in enumerate(self.occupancy):

@@ -11,9 +11,10 @@ header, so the build takes seconds. The
 returned object has one launcher per kernel taking tensors (``seg_encoder``,
 ``seg_decoder_gproj``, ``seg_decoder``, ``conv3x3_fwd_stats``, ``conv3x3_fwd``,
 ``conv3x3_wgrad``, ``conv3x3_dgrad_act``, each of the last four also in the row halo
-form with ``halo=(top, bottom)``) and a few geometry queries (tiles,
-weight-stream bytes, wgrad chunks, shared memory); each launcher runs on PyTorch's
-current stream and checks the launch with ``tdal_last_error()`` right after it.
+form with ``halo=(top, bottom)``, and ``sparse_conv``) and a few geometry queries (tiles,
+weight-stream bytes, wgrad chunks, shared memory, the sparse conv's tile rows); each
+launcher runs on PyTorch's current stream and checks the launch with
+``tdal_last_error()`` right after it.
 ``build_log`` keeps ``nvcc``'s ``-Xptxas -v`` report (registers, static shared memory,
 spills per kernel). Importing this module builds nothing.
 """
@@ -118,6 +119,8 @@ class _Kernels:
              [P, P, I, I, I, I, I, P, P, I, I, P, P, I, I, I, P], None),
             ("tdal_conv3x3_dgrad_act_halo",
              [P, P, P, I, I, I, I, I, P, P, P, P, P, I, I, I, P], None),
+            ("tdal_sparse_conv_tile_rows", [I], I),
+            ("tdal_sparse_conv", [P, I, I, P, I, I, P, I, P, I, P, I, P], I),
         ):
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = args, res
@@ -245,3 +248,19 @@ class _Kernels:
             self._lib.tdal_conv3x3_dgrad_act_halo(*args, *halo, self._bf16(gy),
                                                   self._stream(gy))
         self._check("conv3x3_dgrad_act")
+
+    def sparse_conv_tile_rows(self, cout: int) -> int:
+        return self._lib.tdal_sparse_conv_tile_rows(cout)
+
+    def sparse_conv(self, x, table, w, counts, y):
+        """y = sum_k x[table[k]] @ w[k] (``csrc/sparse_conv.cu``)."""
+        n_in, cin = x.shape
+        taps, n_out = table.shape
+        ok = self._lib.tdal_sparse_conv(
+            x.data_ptr(), n_in, cin, table.data_ptr(), taps, n_out, w.data_ptr(),
+            w.shape[-1], counts.data_ptr(), n_out // counts.numel(), y.data_ptr(),
+            self._bf16(x), self._stream(x))
+        if ok != 0:
+            raise ValueError(f"tdal_torch: sparse_conv takes no {cin} -> {w.shape[-1]} "
+                             f"conv of {taps} taps over {n_out} rows")
+        self._check("sparse_conv")

@@ -11,10 +11,15 @@ sorted by linearised key, invalid rows last with the int32-max sentinel
 - neighbour tables by ``torch.searchsorted`` over the sorted keys. It finds the same
   slots as tdal's bitmap rank/select table (``build_bitmap_table``), which is a TPU
   memory layout: a slot is a voxel's rank among the valid keys either way;
-- the contraction ``sum_k feats[idx[:, k]] @ W_k`` as one gather and one ``addmm`` per
-  tap (tdal's default per-tap path; its ``_PACKED_GATHER`` and ``_FUSED_MAX_V`` TPU
-  experiments are not ported). Products are taken in f32 (bf16 operands rounded to
-  bf16 first), as tdal's ``preferred_element_type=f32``;
+- the contraction ``sum_k feats[idx[:, k]] @ W_k``: on a CUDA tensor one launch of the
+  gather-GEMM kernel (``csrc/sparse_conv.cu``, built by ``tdal_torch.ops.build``), which
+  gathers each tap's rows into shared memory, skips the rows past each sample's
+  occupied count and the taps that no row of a tile finds, and writes each output row
+  once; on a CPU tensor its twin, one gather and one ``addmm`` per tap (tdal's default
+  per-tap path; its ``_PACKED_GATHER`` and ``_FUSED_MAX_V`` TPU experiments are not
+  ported). For a CUDA tensor the kernel runs or the call raises: nothing falls back.
+  Products are taken in f32 (bf16 operands rounded to bf16 first), as tdal's
+  ``preferred_element_type=f32``;
 - a backward without a scatter. Every conv carries, beside its forward table (for
   each output site and tap, the input slot), a backward table (for each input slot and
   tap, the output slot), so d feats is a gather too: for the submanifold conv the
@@ -24,11 +29,18 @@ sorted by linearised key, invalid rows last with the int32-max sentinel
   so a step repeats bit for bit on the card (an ``index_add_`` of f32 rows is atomic
   there and would not).
 
-A table holds global rows of the flattened (B * V) buffer; a missing neighbour points
-at one zero row appended past the last. Each forward table's gathers are counted
-(``runtime/tracing.py``): ``sparse.rows_gathered``, K x the table's rows, from its
-shape; while a profiler records, ``sparse.pairs``, the taps that found a voxel, so that
-their ratio is the share of gathered rows that are real neighbour pairs.
+A table holds global rows of the flattened (B * V) buffer; a missing neighbour is the
+row count, B * V, which the twin reads as one zero row appended past the last. Each
+conv hands the kernel each sample's occupied rows, up to its last valid row
+(``occupied_rows``; for sorted voxels the valid count): the rows past them find no tap,
+and the kernel skips them. Counted (``runtime/tracing.py``), for each forward table:
+``sparse.rows_gathered``, K x the table's rows, from its shape, and, on the card,
+``sparse.tile_taps``, K x the kernel's tiles of the table's rows (``tile_rows``); while a
+profiler records, ``sparse.pairs``, the taps that found a voxel, and, on the card,
+``sparse.tile_taps_loaded``, the (tile, tap)s of which some row finds the tap, which the
+kernel loads: the shares of the padded table that are real neighbour pairs and that the
+kernel loads. ``sparse_conv.launches`` counts the kernel's launches (forward and
+dgrad).
 """
 
 from __future__ import annotations
@@ -98,11 +110,49 @@ def subm_neighbors(coords, valid, keys, grid):
     return _lookup(keys, nb, _in_grid(nb, grid) & valid[..., None], grid)
 
 
-def _count_gathers(found):
-    """A forward table's gathers, from its (B, V_out, K) ``found``."""
+def occupied_rows(valid):
+    """(B,) int64: each sample's rows up to and including its last valid one, of a
+    (B, V) ``valid``; no table row past them finds a tap. For sorted voxels (valid rows
+    first, as ``sort_voxels`` and the strided convs leave them) it is the valid count; a
+    mask with holes keeps every valid row inside it."""
+    pos = torch.arange(1, valid.shape[1] + 1, device=valid.device)
+    return torch.where(valid, pos, 0).amax(1)
+
+
+def tile_rows(cout: int) -> int:
+    """Output rows of one tile of the gather-GEMM kernel for ``cout`` output channels,
+    as the kernel (``csrc/sparse_conv.cu``) tiles them; -1 past 128 channels."""
+    from tdal_torch.ops import build
+
+    return build.kernels().sparse_conv_tile_rows(cout)
+
+
+def tile_taps_loaded(found, rows: int):
+    """Of a (B, V_out, K) ``found``, cut into tiles of ``rows`` rows of the flattened
+    table: the (tile, tap)s of which some row finds the tap, a device count."""
+    f = found.reshape(-1, found.shape[-1])
+    pad = (-f.shape[0]) % rows
+    if pad:
+        f = torch.cat([f, f.new_zeros(pad, f.shape[1])])
+    return f.reshape(-1, rows, f.shape[1]).any(1).sum()
+
+
+def _count_gathers(found, rows=None):
+    """A forward table's gathers, from its (B, V_out, K) ``found``; with ``rows``, the
+    kernel's tile rows, also its tiles' taps."""
+    b, v, k = found.shape
     tracing.count("sparse.rows_gathered", found.numel())
+    if rows is not None:
+        tracing.count("sparse.tile_taps", k * (-(-b * v // rows)))
     if tracing.recording():
         tracing.count_device("sparse.pairs", found.sum())
+        if rows is not None:
+            tracing.count_device("sparse.tile_taps_loaded", tile_taps_loaded(found, rows))
+
+
+def _count(found, feats, weights):
+    """``_count_gathers`` of a conv of ``feats`` by ``weights``: tiles on the card."""
+    _count_gathers(found, tile_rows(weights.shape[2]) if feats.is_cuda else None)
 
 
 def _table(idx, found, v_in):
@@ -115,14 +165,51 @@ def _table(idx, found, v_in):
 
 
 def _pertap(feats, table, weights):
-    """sum_k feats[table[k]] @ weights[k] over a flattened (N, Cin) ``feats``, with
-    products in f32; the zero row past N stands for a missing tap."""
+    """The kernel's twin: sum_k feats[table[k]] @ weights[k] over a flattened (N, Cin)
+    ``feats``, with products in f32; the zero row past N stands for a missing tap."""
     fp = torch.cat([feats, feats.new_zeros(1, feats.shape[1])])
     w = weights.to(feats.dtype).float()
     out = feats.new_zeros(table.shape[1], weights.shape[2], dtype=torch.float32)
     for k in range(table.shape[0]):
         out.addmm_(fp.index_select(0, table[k]).float(), w[k])
     return out.to(feats.dtype)
+
+
+def gather_gemm(feats, table, weights, counts):
+    """The kernel: ``_pertap(feats, table, weights)`` on the card in one launch.
+    ``counts`` (B,) holds each sample's occupied rows of the output (table.shape[1] / B
+    rows a sample), past which no row finds a tap: the kernel writes them as zero
+    without reading their table entries. As in the twin, the weights are
+    rounded to the features' type and the products taken in f32: bf16 features are read
+    as they are, those of any other float type as f32, and the output has the features'
+    type. Raises where the kernel takes no such shape: Cout a multiple of 8 up to 128,
+    up to 27 taps, Cin past 8 in whole 16-byte rows."""
+    from tdal_torch.ops import build
+
+    if not feats.is_floating_point():
+        raise TypeError(f"sparse_conv: float features, got {feats.dtype}")
+    for name, t in (("table", table), ("counts", counts)):
+        if t.device != feats.device or t.dtype != torch.int64:
+            raise ValueError(f"sparse_conv: {name} must be int64 on {feats.device}")
+    b = counts.numel()
+    if table.shape[1] % b:
+        raise ValueError(f"sparse_conv: {table.shape[1]} rows over {b} samples")
+    x = (feats if feats.dtype == torch.bfloat16 else feats.float()).contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    w = weights.to(feats.dtype).float().contiguous()  # as the twin rounds them
+    out = torch.empty(table.shape[1], w.shape[2], dtype=x.dtype, device=x.device)
+    build.kernels().sparse_conv(x, table.contiguous(), w, counts.contiguous(), out)
+    tracing.count("sparse_conv.launches")
+    return out.to(feats.dtype)
+
+
+def _contract(feats, table, weights, counts):
+    """sum_k feats[table[k]] @ weights[k]: the kernel on a CUDA tensor, the twin on the
+    CPU."""
+    if feats.is_cuda:
+        return gather_gemm(feats, table, weights, counts)
+    return _pertap(feats, table, weights)
 
 
 def _wgrad(feats, table, g):
@@ -136,36 +223,45 @@ class _GatherConv(torch.autograd.Function):
     """out = sum_k feats[fwd[k]] @ W_k over flattened rows. Backward: for a
     submanifold conv (``bwd`` None) d feats = sum_k g[fwd[k]] @ W_{K-1-k}^T (the
     neighbour relation is symmetric: tap k of v is u iff tap K-1-k of u is v); for a
-    strided conv d feats = sum_k g[bwd[k]] @ W_k^T with ``bwd`` the transposed table."""
+    strided conv d feats = sum_k g[bwd[k]] @ W_k^T with ``bwd`` the transposed table.
+    ``n_out`` / ``n_in``: each sample's occupied rows of the output / the input (B,)."""
 
     @staticmethod
-    def forward(ctx, feats, weights, fwd, bwd):
-        ctx.save_for_backward(feats, weights, fwd, bwd)
+    def forward(ctx, feats, weights, fwd, bwd, n_out, n_in):
+        ctx.save_for_backward(feats, weights, fwd, bwd, n_in)
         ctx.subm = bwd is None
-        return _pertap(feats, fwd, weights)
+        return _contract(feats, fwd, weights, n_out)
 
     @staticmethod
     def backward(ctx, g):
-        feats, weights, fwd, bwd = ctx.saved_tensors
-        if ctx.subm:
-            dfeats = _pertap(g, fwd, weights.flip(0).transpose(1, 2))
-        else:
-            dfeats = _pertap(g, bwd, weights.transpose(1, 2))
-        return (dfeats.to(feats.dtype), _wgrad(feats, fwd, g).to(weights.dtype), None,
-                None)
+        feats, weights, fwd, bwd, n_in = ctx.saved_tensors
+        dfeats = None
+        if ctx.needs_input_grad[0]:
+            if ctx.subm:
+                dfeats = _contract(g, fwd, weights.flip(0).transpose(1, 2), n_in)
+            else:
+                dfeats = _contract(g, bwd, weights.transpose(1, 2), n_in)
+            dfeats = dfeats.to(feats.dtype)
+        return (dfeats, _wgrad(feats, fwd, g).to(weights.dtype), None, None, None, None)
 
 
-def subm_conv3d(coords, feats, valid, keys, grid, weights, bias=None, neighbors=None):
+def subm_conv3d(coords, feats, valid, keys, grid, weights, bias=None, neighbors=None,
+                rows=None):
     """Submanifold 3x3x3 conv: out[v] = sum_k W_k @ feats[neighbour_k(v)], (B, V, Cout).
 
     ``weights`` (27, Cin, Cout) in ``OFFSETS_3`` order; ``neighbors`` =
-    ``subm_neighbors(...)`` shares the lookup across the convs of one resolution."""
+    ``subm_neighbors(...)`` and ``rows`` = ``occupied_rows(valid)`` (or, for sorted
+    voxels, the valid count) share the lookup and the count across the convs of one
+    resolution. A ``rows`` short of a sample's last valid row zeroes its valid rows
+    past it on the card."""
     if neighbors is None:
         neighbors = subm_neighbors(coords, valid, keys, grid)
+    if rows is None:
+        rows = occupied_rows(valid)
     b, v, cin = feats.shape
     fwd = _table(*neighbors, v)
-    _count_gathers(neighbors[1])
-    out = _GatherConv.apply(feats.reshape(b * v, cin), weights, fwd, None)
+    _count(neighbors[1], feats, weights)
+    out = _GatherConv.apply(feats.reshape(b * v, cin), weights, fwd, None, rows, rows)
     out = out.reshape(b, v, -1)
     if bias is not None:
         out = out + bias
@@ -210,11 +306,15 @@ def downsample_sites(coords, valid, grid, v_out: int):
     return _dedup_sites(cand, ok, out_grid, v_out)
 
 
-def _strided_conv(coords, feats, valid, keys, grid, weights, out, offsets, stride, bias):
+def _strided_conv(coords, feats, valid, keys, grid, weights, out, offsets, stride, bias,
+                  rows):
     """The contraction of a strided sparse conv onto the output sites ``out`` =
-    (out_coords, out_valid, out_keys): input coord = stride * o + offset for each tap,
-    and, for the backward, each input's output slot o = (c - offset) / stride."""
-    out_coords, out_valid, out_keys = out
+    (out_coords, out_valid, out_keys, n_out): input coord = stride * o + offset for each
+    tap, and, for the backward, each input's output slot o = (c - offset) / stride.
+    ``rows``: ``occupied_rows(valid)``, or None to count them here."""
+    out_coords, out_valid, out_keys, n_out = out
+    if rows is None:
+        rows = occupied_rows(valid)
     out_grid = tuple((n + s - 1) // s for n, s in zip(grid, stride))
     b, v, cin = feats.shape
     v_out = out_coords.shape[1]
@@ -226,35 +326,38 @@ def _strided_conv(coords, feats, valid, keys, grid, weights, out, offsets, strid
     o = torch.div(num, st, rounding_mode="floor")
     ok = (o * st == num).all(-1) & _in_grid(o, out_grid) & valid[..., None]
     tidx, tfound = _lookup(out_keys, o, ok, out_grid)
-    _count_gathers(found)
+    _count(found, feats, weights)
     y = _GatherConv.apply(feats.reshape(b * v, cin), weights, _table(idx, found, v),
-                          _table(tidx, tfound, v_out)).reshape(b, v_out, -1)
+                          _table(tidx, tfound, v_out), n_out, rows).reshape(b, v_out, -1)
     if bias is not None:
         y = y + bias
     return out_coords, y * out_valid[..., None], out_valid, out_keys
 
 
-def sparse_conv3d_down2(coords, feats, valid, keys, grid, weights, v_out: int, bias=None):
+def sparse_conv3d_down2(coords, feats, valid, keys, grid, weights, v_out: int, bias=None,
+                        rows=None):
     """k3/s2/p1 sparse conv (spconv SparseConv3d stride 2) onto ``downsample_sites``:
     for output site o and tap d, input coord = 2 o + d. Returns (out_coords, out_feats,
-    out_valid, out_keys) on the grid ``down2_grid(grid)``."""
-    sites = downsample_sites(coords, valid, grid, v_out)[:3]
+    out_valid, out_keys) on the grid ``down2_grid(grid)``; ``rows`` as ``subm_conv3d``'s."""
+    sites = downsample_sites(coords, valid, grid, v_out)
     return _strided_conv(coords, feats, valid, keys, grid, weights, sites, OFFSETS_3,
-                         (2, 2, 2), bias)
+                         (2, 2, 2), bias, rows)
 
 
-def sparse_conv3d_downz(coords, feats, valid, keys, grid, weights, v_out: int, bias=None):
+def sparse_conv3d_downz(coords, feats, valid, keys, grid, weights, v_out: int, bias=None,
+                        rows=None):
     """(3, 1, 1) kernel, stride (2, 1, 1) sparse conv: the backbone's final
-    z-compression (reference scn.py:139-144), onto the grid ``downz_grid(grid)``."""
+    z-compression (reference scn.py:139-144), onto the grid ``downz_grid(grid)``;
+    ``rows`` as ``subm_conv3d``'s."""
     out_grid = downz_grid(grid)
     c = coords.long()
     lo = torch.stack([c[..., 0] // 2, c[..., 1], c[..., 2]], dim=-1)
     hi = torch.stack([(c[..., 0] + 1) // 2, c[..., 1], c[..., 2]], dim=-1)
     cand = torch.cat([lo, hi], dim=1)
     ok = _in_grid(cand, out_grid) & valid.repeat(1, 2)
-    sites = _dedup_sites(cand, ok, out_grid, v_out)[:3]
+    sites = _dedup_sites(cand, ok, out_grid, v_out)
     return _strided_conv(coords, feats, valid, keys, grid, weights, sites, OFFSETS_Z,
-                         (2, 1, 1), bias)
+                         (2, 1, 1), bias, rows)
 
 
 def scatter_dense_bev(coords, feats, valid, grid):

@@ -18,7 +18,7 @@ records; every count made while one records is also kept under ``traced.<name>``
 that the counts of the profiled stretches can be read beside their trace.
 ``counters()`` is one flat snapshot of all of them, with the hand kernels' launch
 counts (``tdal_torch.ops.conv3x3.launches``, ``fused_pointnet.launches``) under
-prefixed names.
+prefixed names; the sparse gather-GEMM kernel counts its own, ``sparse_conv.launches``.
 
 ``summarize`` reads a profiler's Chrome trace back: for each program span its
 occurrences, host time, device range, kernel launches and the device's idle time that

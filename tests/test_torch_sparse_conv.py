@@ -187,3 +187,87 @@ def test_sparse_backward_runs_no_scatter_add():
     assert any("index_select" in n for n in Ops.seen) and any("mm" in n for n in Ops.seen)
     assert not [n for n in Ops.seen if "index_add" in n or "scatter_add" in n
                 or "index_put" in n or "scatter_reduce" in n], sorted(Ops.seen)
+
+
+def _refuse_kernels():
+    raise AssertionError("a CPU tensor reached the CUDA kernel library")
+
+
+@pytest.mark.parametrize("which", ["subm", "down2", "downz"])
+def test_a_cpu_tensor_takes_the_twin_which_still_matches_tdal(which, monkeypatch):
+    """On the CPU every contraction (forward and d feats) is the per-tap twin: the kernel
+    library is never asked for, no kernel launch is counted, and the twin's outputs and
+    gradients are tdal's."""
+    from tdal_torch.ops import build
+    from tdal_torch.runtime import tracing
+
+    monkeypatch.setattr(build, "kernels", _refuse_kernels)
+    grid = (5, 6, 7)
+    (jc, jf, jv, jk), (tc, tf, tv, tk) = _sorted_pair(grid, seed=8)
+    taps = 3 if which == "downz" else 27
+    rng = np.random.default_rng(9)
+    w = rng.normal(size=(taps, 4, 8)).astype(np.float32)
+    jfn, tfn = {"subm": (J.subm_conv3d, T.subm_conv3d),
+                "down2": (J.sparse_conv3d_down2, T.sparse_conv3d_down2),
+                "downz": (J.sparse_conv3d_downz, T.sparse_conv3d_downz)}[which]
+    extra = () if which == "subm" else (40,)
+
+    def ref_fn(f, w):
+        out = jax.vmap(lambda c, f_, m, k: jfn(c, f_, m, k, grid, w, *extra))(jc, f, jv, jk)
+        return out if which == "subm" else out[1]
+
+    ref, vjp = jax.vjp(ref_fn, jf, jnp.asarray(w))
+    g = rng.normal(size=ref.shape).astype(np.float32)
+    df_ref, _ = vjp(jnp.asarray(g))
+    launches = tracing.counters().get("sparse_conv.launches", 0)
+    tff = tf.clone().requires_grad_()
+    got = tfn(tc, tff, tv, tk, grid, torch.from_numpy(w), *extra)
+    got = got if which == "subm" else got[1]
+    got.backward(torch.from_numpy(g))
+    _close(got.detach().numpy(), ref, "forward")
+    _close(tff.grad.numpy(), df_ref, "d feats")
+    assert tracing.counters().get("sparse_conv.launches", 0) == launches
+
+
+def test_the_tile_counters_on_a_hand_made_table():
+    """``sparse.tile_taps`` is K x the kernel's tiles of a forward table's rows;
+    ``sparse.tile_taps_loaded`` (while a profiler records) the (tile, tap)s that some row
+    of the tile finds; tiles run over the flattened rows, across samples. Without tile
+    rows (a CPU conv: no kernel, no tiles) neither is counted."""
+    from tdal_torch.runtime import tracing
+
+    # 2 samples x 5 rows, 3 taps; tiles of 4 rows: rows 0-3, 4-7, 8-9
+    found = torch.zeros(2, 5, 3, dtype=torch.bool)
+    found[0, 0, 1] = found[0, 3, 2] = True  # tile 0: taps 1, 2
+    found[0, 4, 1] = found[1, 2, 1] = True  # tile 1: tap 1 twice (samples 0 and 1)
+    assert int(T.tile_taps_loaded(found, 4)) == 3
+    assert int(T.tile_taps_loaded(found, 5)) == 3  # one tile a sample: {1, 2}, {1}
+    assert int(T.tile_taps_loaded(found, 16)) == 2  # one tile: taps 1, 2
+
+    before = tracing.counters()
+    big = torch.zeros(2, 300, 27, dtype=torch.bool)
+    big[0, 0, 13] = big[1, 299, 0] = big[1, 299, 26] = True  # rows 0 and 599
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        T._count_gathers(big, 128)  # 5 tiles
+        T._count_gathers(big, 256)  # 3 tiles
+        T._count_gathers(big)  # no tiles
+    after = tracing.counters()
+
+    def d(name):
+        return after.get(name, 0) - before.get(name, 0)
+
+    assert d("sparse.rows_gathered") == 3 * 600 * 27
+    assert d("sparse.tile_taps") == 27 * (5 + 3)
+    assert d("traced.sparse.tile_taps") == 27 * (5 + 3)
+    assert d("traced.sparse.tile_taps_loaded") == 3 + 3  # rows 0 and 599 in tiles apart
+    assert d("traced.sparse.pairs") == 3 * 3
+
+
+def test_occupied_rows_reach_each_samples_last_valid_row():
+    """The kernel skips a sample's rows past ``occupied_rows``: for sorted voxels that is
+    the valid count, and a mask with holes still covers its last valid row."""
+    valid = torch.tensor([[1, 1, 1, 0, 0, 0], [1, 0, 1, 0, 1, 0], [0, 0, 0, 0, 0, 0],
+                          [0, 0, 0, 0, 0, 1]], dtype=torch.bool)
+    rows = T.occupied_rows(valid)
+    assert rows.dtype == torch.int64 and rows.tolist() == [3, 5, 0, 6]
+    assert rows[0] == valid[0].sum()
