@@ -21,6 +21,7 @@ import numpy as np
 from tdal_torch.core.targets import AssignerConfig, assign_centernet_targets
 from tdal_torch.core.voxel import VoxelConfig, pad_points
 from tdal_torch.data.waymo_schema import load_pickle
+from tdal_torch.runtime.tracing import timed
 
 TYPE_LIST = ["UNKNOWN", "VEHICLE", "PEDESTRIAN", "SIGN", "CYCLIST"]
 
@@ -107,23 +108,27 @@ def _load_frame_points(path) -> np.ndarray:
 
 def read_points(info: dict, nsweeps: int = 1) -> np.ndarray:
     """Lidar points in the reference frame with tanh-normalized intensity; multi-sweep
-    concat adds a time-lag channel. Parity: loading.py:61-172."""
+    concat adds a time-lag channel. Parity: loading.py:61-172. The earlier sweeps'
+    reading and merging is the host timer ``data.sweeps`` (``runtime/tracing.py``), one
+    count a frame."""
     points = _load_frame_points(info["path"])
     if nsweeps <= 1:
         return points
     clouds = [points]
     times = [np.zeros((points.shape[0], 1), np.float32)]
-    for sweep in info["sweeps"][: nsweeps - 1]:
-        spts = _load_frame_points(sweep["path"])
-        sxyz = spts[:, :3].copy()
-        sfeat = spts[:, 3:]
-        if sweep["transform_matrix"] is not None:
-            tm = np.asarray(sweep["transform_matrix"])
-            sxyz = sxyz @ tm[:3, :3].T + tm[:3, 3]
-        clouds.append(np.concatenate([sxyz, sfeat], axis=1))
-        times.append(
-            np.full((sxyz.shape[0], 1), sweep["time_lag"], np.float32)
-        )
+    with timed("data.sweeps"):
+        for sweep in info["sweeps"][: nsweeps - 1]:
+            spts = _load_frame_points(sweep["path"])
+            sxyz = spts[:, :3].copy()
+            sfeat = spts[:, 3:]
+            if sweep["transform_matrix"] is not None:
+                # in float64, written back as float32 as det3d's read_sweep writes them
+                tm = np.asarray(sweep["transform_matrix"])
+                sxyz = (sxyz @ tm[:3, :3].T + tm[:3, 3]).astype(np.float32)
+            clouds.append(np.concatenate([sxyz, sfeat], axis=1))
+            times.append(
+                np.full((sxyz.shape[0], 1), sweep["time_lag"], np.float32)
+            )
     return np.concatenate(
         [np.concatenate(clouds, 0), np.concatenate(times, 0)], axis=1
     )

@@ -6,6 +6,14 @@ NMS'd boxes as fixed-shape (B, K) RoIs -> the BEV gather at 5 points a box -> pr
 targets -> the RoIHead -> the RoI losses (plus the first stage's CenterHead loss when
 it is not frozen), or the sqrt-rescored predictions.
 
+The predict step's phases are spans (``runtime/tracing.py``), named as in
+``detector_engine``: ``predict.step`` around ``predict.forward`` (the first stage),
+``center_head.predict``'s ``predict.decode`` and ``predict.nms``, then
+``two_stage.bev_gather`` (the five-point BEV samples), ``two_stage.roi_head`` and
+``two_stage.rescore``. It counts ``predict.steps``, ``two_stage.rois`` (the RoI rows, K
+a frame, from the shapes) and, while a profiler records, ``two_stage.rois_valid`` (the
+rows that carry a box, on the device).
+
 ``TwoStageEngine`` is an ``nn.Module`` holding ``first`` and ``roi_head``, so one
 ``TrainState`` and one checkpoint carry both. With ``freeze_first`` the first stage
 runs in eval mode under ``torch.no_grad()`` (its running statistics stay as they are)
@@ -34,6 +42,7 @@ from tdal_torch.models.two_stage import (
 )
 from tdal_torch.parallel.mesh import data_size, rank_rows, sum_logs
 from tdal_torch.pipeline.detector_engine import TARGET_KEYS
+from tdal_torch.runtime.tracing import count, count_device, span
 from tdal_torch.runtime.train_state import TrainState
 
 
@@ -62,11 +71,13 @@ class TwoStageEngine(nn.Module):
         learn = train and not self.freeze_first
         self.first.train(learn)
         with contextlib.nullcontext() if learn else torch.no_grad():
-            maps, bev = self.first(points, return_feature=True)
+            with span("train.forward" if train else "predict.forward"):
+                maps, bev = self.first(points, return_feature=True)
             boxes = predict([{k: v.float() for k, v in m.items()} for m in maps],
                             self.test_cfg, self.first.num_classes)
             raw, valid = boxes["box3d_lidar"], boxes["valid"]
-            feats = self.bev_extractor(bev, get_box_centers(raw, self.num_point))
+            with span("two_stage.bev_gather"):
+                feats = self.bev_extractor(bev, get_box_centers(raw, self.num_point))
         rois = raw[..., [0, 1, 2, 3, 4, 5, 8, 6, 7]] if raw.shape[-1] == 9 else raw
         rois = rois * valid[..., None]
         roi_labels = torch.where(valid, boxes["label_preds"] + 1, 0)
@@ -130,11 +141,17 @@ def make_two_stage_steps(engine: TwoStageEngine):
 
     @torch.no_grad()
     def predict_step(state: TrainState, points):
-        eng = state.model
-        eng.eval()
-        _, rois, roi_labels, roi_scores, feats, valid = eng.first_stage_rois(points, False)
-        rcnn_cls, rcnn_reg = eng.roi_head(feats)
-        return two_stage_post_process(generate_predicted_boxes(rois, rcnn_reg), rcnn_cls,
-                                      roi_scores, roi_labels, valid)
+        count("predict.steps")
+        with span("predict.step"):
+            eng = state.model
+            eng.eval()
+            _, rois, roi_labels, roi_scores, feats, valid = eng.first_stage_rois(points, False)
+            count("two_stage.rois", rois.shape[0] * rois.shape[1])
+            count_device("two_stage.rois_valid", valid.sum())
+            with span("two_stage.roi_head"):
+                rcnn_cls, rcnn_reg = eng.roi_head(feats)
+            with span("two_stage.rescore"):
+                return two_stage_post_process(generate_predicted_boxes(rois, rcnn_reg),
+                                              rcnn_cls, roi_scores, roi_labels, valid)
 
     return train_step, predict_step

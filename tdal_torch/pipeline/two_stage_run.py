@@ -7,8 +7,11 @@ first stage from the config's ``first_stage_cfg.pretrained`` (a checkpoint of
 directory that ``tdal``'s training wrote; reference single_stage.py: 33-40),
 ``train_two_stage`` trains the RoI head (and the first stage, unless frozen) on
 proposal targets with a checkpoint per epoch, and ``run_two_stage_inference`` runs the
-sqrt-rescored two-stage prediction over a dataset. ``train_two_stage`` takes a
-data-parallel mesh as ``train_detector`` does (tdal's ``mesh`` path).
+sqrt-rescored two-stage prediction over a dataset; its predict step opens the spans
+``predict.step`` and ``two_stage.*`` and counts ``predict.steps``
+(``two_stage_engine``), and ``predictions_to_host`` opens ``predict.to_host``.
+``train_two_stage`` takes a data-parallel mesh as ``train_detector`` does (tdal's
+``mesh`` path).
 """
 
 from __future__ import annotations

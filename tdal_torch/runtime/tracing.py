@@ -46,7 +46,7 @@ _traced: dict = {}  # name -> int or float, the counts made while a profiler rec
 _device: dict = {}  # name -> [tensor], ``count_device`` while a profiler records
 
 # the first word of every program span's name: what ``summarize`` reads as the program's
-SPAN_LAYERS = ("train", "predict", "optimizer", "dp", "model", "data")
+SPAN_LAYERS = ("train", "predict", "optimizer", "dp", "model", "data", "two_stage")
 OUTSIDE = "outside every span"
 _LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                  "cuLaunchKernelEx", "cudaLaunchCooperativeKernel")

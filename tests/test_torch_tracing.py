@@ -1,11 +1,13 @@
 """The port's spans and counters (``tdal_torch.runtime.tracing``) on the CPU: nothing
 is recorded off a profiler; a train step's phases nest under ``train.step`` in the
-trace; the NMS, sparse-gather and batch-build counts match counts made by hand; the
-hand kernels' launches are in the snapshot; ``summarize`` reads spans, launches and
-idle gaps back from a Chrome trace built by hand."""
+trace, and a two-stage predict step's under ``predict.step``; the NMS, sparse-gather,
+batch-build, sweep-merge and RoI counts match counts made by hand; the hand kernels'
+launches are in the snapshot; ``summarize`` reads spans, launches and idle gaps back
+from a Chrome trace built by hand."""
 
 import json
 import logging
+import pickle
 
 import numpy as np
 import pytest
@@ -67,6 +69,26 @@ def test_data_batch_counts_the_batches_of_detection_batches(tiny):
     assert d["data.wait.n"] >= 2
 
 
+def test_data_sweeps_times_the_sweep_merge_of_each_frame(tmp_path):
+    from tdal_torch.data.detection import read_points
+
+    rng = np.random.default_rng(3)
+    infos = []
+    for i in range(3):
+        for name in (f"f{i}.pkl", f"s{i}.pkl"):
+            with open(tmp_path / name, "wb") as f:
+                pickle.dump({"lidars": {"points_xyz": rng.normal(size=(50, 3)).astype(np.float32),
+                                        "points_feature": rng.random((50, 2)).astype(np.float32)}}, f)
+        infos.append({"path": str(tmp_path / f"f{i}.pkl"), "sweeps": [
+            {"path": str(tmp_path / f"s{i}.pkl"), "transform_matrix": np.eye(4), "time_lag": 0.1}]})
+    before = tracing.counters()
+    assert read_points(infos[0]).shape == (50, 5)  # one sweep: no merge, nothing counted
+    assert "data.sweeps.n" not in _diff(before, tracing.counters())
+    assert all(read_points(info, nsweeps=2).shape == (100, 6) for info in infos)
+    d = _diff(before, tracing.counters())
+    assert d["data.sweeps.n"] == 3 and d["data.sweeps.s"] > 0
+
+
 def test_a_train_step_writes_its_phases_nested_under_train_step(tiny, tmp_path):
     from tdal_torch.pipeline.detector_engine import make_detector_steps
     from tdal_torch.runtime.schedules import adam_with_schedule
@@ -100,6 +122,49 @@ def test_a_train_step_writes_its_phases_nested_under_train_step(tiny, tmp_path):
     assert a <= spans["optimizer.clip"][0] < spans["optimizer.update"][0] <= b
     summary = tracing.summarize(path)["spans"]
     assert summary["train.step"]["n"] == 1 and summary["train.step"]["host_s"] > 0
+
+
+def test_a_two_stage_predict_step_writes_its_phases_nested_under_predict_step(tmp_path):
+    from tdal_torch.models.builder import (
+        build_detector, build_test_cfg, build_two_stage_engine, build_voxel_config,
+    )
+    from tdal_torch.pipeline.two_stage_engine import make_two_stage_steps
+    from tdal_torch.runtime.config import Config
+    from tdal_torch.runtime.train_state import TrainState
+
+    cfg = Config.fromfile("configs/synthetic/pp_two_stage_tiny.py")
+    vox = build_voxel_config(cfg.voxel_generator, train=False)
+    first = build_detector(cfg.model["first_stage_cfg"], vox, device="cpu")
+    test_cfg = dict(build_test_cfg(cfg.test_cfg, first, vox), score_threshold=0.0)
+    engine = build_two_stage_engine(cfg.model, vox, test_cfg, device="cpu")
+    rng = np.random.default_rng(1)
+    pts = rng.uniform([-20, -20, -1.5, 0, 0], [40, 20, 2.0, 1, 1], (2, 1500, 5))
+    points = torch.as_tensor(pts, dtype=torch.float32)
+    step = make_two_stage_steps(engine)[1]
+    before = tracing.counters()
+    cpu = torch.device("cpu")
+    prof = detector_run.start_trace(cpu)
+    out = step(TrainState(engine, None), points)
+    path = detector_run.stop_trace(prof, tmp_path, "predict", cpu)
+    d = _diff(before, tracing.counters())
+    post_max = test_cfg["nms"]["nms_post_max_size"]
+    assert d["predict.steps"] == 1
+    assert d["two_stage.rois"] == d["traced.two_stage.rois"] == 2 * post_max
+    assert d["traced.two_stage.rois_valid"] == int(out["valid"].sum()) > 0
+    spans = {}
+    for e in json.loads(path.read_text())["traceEvents"]:
+        if (e.get("cat") == "user_annotation" and e.get("ph") == "X"
+                and e["name"].split(".")[0] in tracing.SPAN_LAYERS):
+            spans.setdefault(e["name"], (e["ts"], e["ts"] + e["dur"]))
+    phases = ["predict.forward", "predict.decode", "predict.nms", "two_stage.bev_gather",
+              "two_stage.roi_head", "two_stage.rescore"]
+    a, b = spans["predict.step"]
+    for name in phases + ["model.voxelize", "model.rpn_head"]:
+        assert a <= spans[name][0] <= spans[name][1] <= b, name
+    starts = [spans[n][0] for n in phases]
+    assert starts == sorted(starts)
+    summary = tracing.summarize(path)["spans"]
+    assert all(summary[n]["n"] == 1 for n in phases[3:])
 
 
 def _line(n, apart):
